@@ -1,0 +1,191 @@
+"""Build, load and dispatch the package's hand-written CUDA kernels.
+
+The sources in `csrc/` are compiled with `nvcc` for `sm_90a` (Hopper) into
+one shared library with a plain C interface, bound with `ctypes`. The
+library is built at first use into `build/kernels/<hash>/` at the root of
+the checkout, keyed by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one is loaded as is. Nothing is built or loaded
+when this module is imported.
+
+Dispatch rule shared by every kernel wrapper (`use_kernel`):
+
+- a CUDA tensor goes through the kernel, or the call raises;
+- a CPU tensor goes through the kernel's plain PyTorch version;
+- inside `plain_kernels()` CUDA tensors take the plain version too. Only
+  comparisons of a kernel against its plain version enter it.
+
+Every wrapper adds one to its entry of `LAUNCHES` each time it launches its
+kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libmsa_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# kernel name -> number of launches through its wrapper
+LAUNCHES: Dict[str, int] = {
+    "window_attention": 0,   # K1
+    "flash_attention": 0,    # K2
+    "msda_multi_level": 0,   # K3 (injectors, L > 1)
+    "msda_single_level": 0,  # K4 (extractors, L == 1)
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "msa_window_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP],
+    "msa_flash_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I,
+                            _VP],
+    "msa_deform_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                        ctypes.POINTER(_I), _I, _VP],
+}
+
+
+class _State:
+    lib: Optional[ctypes.CDLL] = None
+    build_seconds: Optional[float] = None
+    force_plain: bool = False
+
+
+_state = _State()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route CUDA tensors through the plain PyTorch versions, for comparing
+    each kernel with its plain version on the card."""
+    prev = _state.force_plain
+    _state.force_plain = True
+    try:
+        yield
+    finally:
+        _state.force_plain = prev
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version."""
+    if x.device.type == "cuda":
+        return not _state.force_plain
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel and no plain path for device {x.device}")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library (once per source hash)."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    _state.build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_seconds() -> Optional[float]:
+    """Seconds the last build in this process took (None: nothing built)."""
+    return _state.build_seconds
+
+
+def library() -> ctypes.CDLL:
+    if _state.lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _state.lib = lib
+    return _state.lib
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
+def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
+                  shape=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def current_stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_status(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
