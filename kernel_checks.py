@@ -13,8 +13,10 @@ import torch
 
 from multimodal_sam_adapter_torch.models.adapter import reference_points
 from multimodal_sam_adapter_torch.ops import kernels
+from multimodal_sam_adapter_torch.ops.convnext_block import convnext_block
 from multimodal_sam_adapter_torch.ops.flash_attention import flash_attention
 from multimodal_sam_adapter_torch.ops.msda_cuda import ms_deform_attn
+from multimodal_sam_adapter_torch.ops.pixel_shuffle import pixel_shuffle_up_bn
 from multimodal_sam_adapter_torch.ops.window_attention import window_attention
 
 # kernel name -> where it lives and which TPU kernel it replaces
@@ -31,6 +33,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
     "msda_single_level": dict(
         source="multimodal_sam_adapter_torch/csrc/msda.cu",
         replaces="multimodal_sam_adapter_tpu/ops/msda_pallas.py:574"),
+    "convnext_block": dict(
+        source="multimodal_sam_adapter_torch/csrc/convnext_block.cu",
+        replaces="multimodal_sam_adapter_tpu/ops/convnext_block.py:115"),
+    "pixel_shuffle_up_bn": dict(
+        source="multimodal_sam_adapter_torch/csrc/pixel_shuffle.cu",
+        replaces="multimodal_sam_adapter_tpu/ops/pixel_shuffle.py:53"),
 }
 
 # Kernel vs plain version. float32: both sides run on the same float32
@@ -58,12 +66,16 @@ def plain_reference(fn: Callable, args: tuple) -> torch.Tensor:
 
 def time_ms(fn: Callable, args: tuple, iters: int = 10,
             warmup: int = 2) -> float:
-    """Mean milliseconds per call on the card, by CUDA events after
-    warm-up."""
+    """Mean device milliseconds per call, by CUDA events after warm-up.
+    The timed calls are queued behind a spin kernel (~10 ms), so the host's
+    time to issue them does not open gaps on the device: what is timed is
+    the device work of the wrapper, its torch ops included."""
     for _ in range(warmup):
         fn(*args)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn(*args)
@@ -76,16 +88,70 @@ def time_ms(fn: Callable, args: tuple, iters: int = 10,
 EMBED, HEADS, WINDOW, GRID = 1024, 16, 14, 64
 DEF_HEADS, DEF_POINTS, DEF_VALUE = 16, 4, 512
 PYRAMID = ((128, 128), (64, 64), (32, 32))
+# K5: (H = W, C) of the four ConvNeXt-small stages at 1024^2
+CONVNEXT_STAGES = ((256, 96), (128, 192), (64, 384), (32, 768))
+# K6: (c2 grid side, embed) at 1024^2
+PIXEL_SHUFFLE_FLAGSHIP = (128, EMBED)
+# ragged shapes: the FMB (800^2) stage widths that fill no tile, and the
+# narrow widths of the test configurations (atto trunk, embed 32)
+CONVNEXT_RAGGED = ((25, 768), (50, 384), (16, 40))
+PIXEL_SHUFFLE_RAGGED = ((100, EMBED), (8, 32))
 
 
 def _randn(shape, g, dtype, scale=1.0):
     return (torch.randn(shape, generator=g, device=g.device) * scale).to(dtype)
 
 
-def flagship_case(name: str, dtype: torch.dtype, g: torch.Generator
-                  ) -> Tuple[Callable, tuple]:
-    """(wrapper, args) for one kernel at its flagship shapes."""
+def convnext_case(hw: int, C: int, dtype: torch.dtype, g: torch.Generator,
+                  batch: int = 1) -> Tuple[Callable, tuple]:
+    """K5 on a (batch, hw, hw, C) map with weights scaled so that every
+    stage of the block is O(1): fc1's inputs are normalised, its weights
+    ~1/sqrt(C), fc2's ~1/sqrt(4C)."""
+    hid = 4 * C
+    return convnext_block, (
+        _randn((batch, hw, hw, C), g, dtype),
+        _randn((C, 1, 7, 7), g, dtype, 0.1),
+        _randn((C,), g, dtype, 0.05),
+        (1 + _randn((C,), g, torch.float32, 0.05)).to(dtype),
+        _randn((C,), g, dtype, 0.05),
+        _randn((hid, C), g, dtype, C ** -0.5),
+        _randn((hid,), g, dtype, 0.05),
+        _randn((C, hid), g, dtype, hid ** -0.5),
+        _randn((C,), g, dtype, 0.05),
+        _randn((C,), g, dtype, 0.5))
+
+
+def pixel_shuffle_case(hw: int, E: int, dtype: torch.dtype,
+                       g: torch.Generator, batch: int = 1
+                       ) -> Tuple[Callable, tuple]:
+    """K6 with the operands in the backbone's layouts: c2 a view of the
+    (batch, hw*hw, E) token stream, c1 an NCHW map, x1 channels-last (as
+    the bilinear resize of a token-grid view returns it)."""
+    c2 = _randn((batch, hw * hw, E), g, dtype).transpose(1, 2).reshape(
+        batch, E, hw, hw)
+    c1 = _randn((batch, E, 2 * hw, 2 * hw), g, dtype)
+    x1 = _randn((batch, 2 * hw, 2 * hw, E), g, dtype).permute(0, 3, 1, 2)
+    weight = _randn((E, E, 2, 2), g, dtype, E ** -0.5)
+    scale = 1 + _randn((E,), g, torch.float32, 0.05)
+    shift = _randn((E,), g, torch.float32, 0.05)
+    return pixel_shuffle_up_bn, (c2, weight, c1, x1, scale, shift)
+
+
+def flagship_shapes(name: str) -> tuple:
+    """The shapes at which `flagship_case` checks a kernel: one for each
+    kernel but K5, which runs at the four stages of the trunk."""
+    return CONVNEXT_STAGES if name == "convnext_block" else (None,)
+
+
+def flagship_case(name: str, dtype: torch.dtype, g: torch.Generator,
+                  shape=None) -> Tuple[Callable, tuple]:
+    """(wrapper, args) for one kernel at its flagship shapes (`shape`: one
+    of `flagship_shapes(name)`)."""
     dev = g.device
+    if name == "convnext_block":
+        return convnext_case(*shape, dtype, g)
+    if name == "pixel_shuffle_up_bn":
+        return pixel_shuffle_case(*PIXEL_SHUFFLE_FLAGSHIP, dtype, g)
     if name == "window_attention":
         windows = (-(-GRID // WINDOW)) ** 2  # 64 padded to 70: 25 windows
         qkv = _randn((windows, WINDOW * WINDOW, 3 * EMBED), g, dtype)

@@ -5,7 +5,9 @@ Input (B, 3 + aux, H, W) NCHW: the RGB and auxiliary channels feed the
 twin ConvNeXt spatial prior, the RGB channels feed the ViT patch embed.
 Four interaction stages {inject -> ViT blocks -> extract}, then the pyramid
 assembly: a 2x2 stride-2 ConvTranspose2d lifts c2 onto c1, bilinearly
-resized ViT features are added per level, and four BatchNorms finish.
+resized ViT features are added per level, and four BatchNorms finish. The
+f1 level (transposed conv, both adds, norm1) is one call of K6
+(ops/pixel_shuffle.py), with norm1 as its eval-mode affine.
 `forward_features` returns [f1, f2, f3, f4] NCHW at strides 4/8/16/32;
 `forward` takes and returns NHWC, the JAX package's layout.
 """
@@ -16,6 +18,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.pixel_shuffle import pixel_shuffle_up_bn
 from ..utils.interpolate import resize_bicubic, resize_bilinear
 from .adapter import InteractionBlock, SpatialPriorModuleBimodal
 from .sam_vit import PatchEmbed, ViTBlock
@@ -74,6 +77,9 @@ class SAMAdapterBimodal(nn.Module):
 
     def forward_features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, C_in, H, W). Returns four NCHW maps of embed_dim channels."""
+        if self.training:
+            raise NotImplementedError("the port's backbone runs in eval mode "
+                                      "only (norm1 is folded into K6)")
         B, _, H_img, W_img = x.shape
         E = self.embed_dim
         x_rgb, x_aux = x[:, :self.rgb_ch], x[:, self.rgb_ch:]
@@ -104,9 +110,21 @@ class SAMAdapterBimodal(nn.Module):
         x1 = resize_bilinear(x1, (4 * H, 4 * W))
         x2 = resize_bilinear(x2, (2 * H, 2 * W))
         x4 = resize_bilinear(x4, (H // 2, W // 2))
-        f1 = self.norm1(self.up(c2) + c1 + x1)
+        scale, shift = self._f1_affine()
+        f1 = pixel_shuffle_up_bn(c2, self.up.weight, c1, x1, scale, shift)
         return [f1, self.norm2(c2 + x2), self.norm3(c3 + x3),
                 self.norm4(c4 + x4)]
+
+    def _f1_affine(self):
+        """norm1 in eval mode as f1 = y * scale + shift, float32, with the
+        transposed conv's bias folded in: scale = w / sqrt(var + eps),
+        shift = b - mean * scale + up.bias * scale."""
+        bn = self.norm1
+        scale = bn.weight.float() * torch.rsqrt(bn.running_var.float()
+                                                + bn.eps)
+        shift = (bn.bias.float() - bn.running_mean.float() * scale
+                 + self.up.bias.float() * scale)
+        return scale, shift
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, H, W, C_in) NHWC. Returns four NHWC maps."""

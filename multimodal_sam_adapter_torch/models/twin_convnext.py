@@ -1,16 +1,25 @@
 """TwinConvNeXt: two weight-independent ConvNeXt trunks (RGB / auxiliary
 modality) whose per-stage features are channel-concatenated. The
-counterpart of multimodal_sam_adapter_tpu/models/twin_convnext.py (its XLA
-path); parameter names follow the reference's `_x` / `_y` branch keys.
+counterpart of multimodal_sam_adapter_tpu/models/twin_convnext.py;
+parameter names follow the reference's `_x` / `_y` branch keys.
+
+Each block runs K5 (ops/convnext_block.py), which reads and writes
+channels-last maps, so the trunk stays channels-last (B, H, W, C) from the
+stem to the stage norms: no permute copy sits between the blocks. The
+modules keep the reference's structure and names (`downsample_layers_x.1.0`
+is still the LayerNorm before the second downsample conv), so a reference
+state_dict loads strictly; their forwards are applied by hand here.
 """
 from __future__ import annotations
 
 from typing import List
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import LayerNorm2d, gelu
+from ..nn.layers import LayerNorm2d
+from ..ops.convnext_block import convnext_block
 
 CONVNEXT_ARCHS = {
     "atto": {"depths": (2, 2, 6, 2), "channels": (40, 80, 160, 320)},
@@ -27,7 +36,8 @@ CONVNEXT_ARCHS = {
 
 
 class ConvNeXtBlock(nn.Module):
-    """dwconv 7x7 -> LN -> Linear(4x) -> GELU -> Linear -> gamma, residual."""
+    """dwconv 7x7 -> LN -> Linear(4x) -> GELU -> Linear -> gamma, residual,
+    on a channels-last map (B, H, W, C)."""
 
     def __init__(self, channels: int, mlp_ratio: float = 4.0):
         super().__init__()
@@ -39,10 +49,21 @@ class ConvNeXtBlock(nn.Module):
         self.gamma = nn.Parameter(torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.depthwise_conv(x).permute(0, 2, 3, 1)
-        y = self.pointwise_conv2(gelu(self.pointwise_conv1(self.norm(y))))
-        y = y * self.gamma.to(y.dtype)
-        return x + y.permute(0, 3, 1, 2)
+        return convnext_block(
+            x, self.depthwise_conv.weight, self.depthwise_conv.bias,
+            self.norm.weight, self.norm.bias, self.pointwise_conv1.weight,
+            self.pointwise_conv1.bias, self.pointwise_conv2.weight,
+            self.pointwise_conv2.bias, self.gamma, self.norm.eps)
+
+
+def _ln_last(ln: LayerNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm2d applied to a channels-last map."""
+    return F.layer_norm(x, x.shape[-1:], ln.weight, ln.bias, ln.eps)
+
+
+def _conv_last(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A Conv2d on a channels-last map (B, H, W, C) -> (B, H', W', C')."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class TwinConvNeXt(nn.Module):
@@ -67,12 +88,18 @@ class TwinConvNeXt(nn.Module):
                 setattr(self, f"norm_{br}{i}", LayerNorm2d(c))
 
     def _branch(self, br: str, x: torch.Tensor) -> List[torch.Tensor]:
+        """x (B, C_in, H, W) -> four NCHW-shaped views of channels-last
+        stage outputs."""
         down = getattr(self, f"downsample_layers_{br}")
         stages = getattr(self, f"stages_{br}")
+        x = _ln_last(down[0][1], down[0][0](x).permute(0, 2, 3, 1))
         outs = []
         for i in range(4):
-            x = stages[i](down[i](x))
-            outs.append(getattr(self, f"norm_{br}{i}")(x))
+            if i:
+                x = _conv_last(down[i][1], _ln_last(down[i][0], x))
+            x = stages[i](x.contiguous())
+            outs.append(_ln_last(getattr(self, f"norm_{br}{i}"), x)
+                        .permute(0, 3, 1, 2))
         return outs
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:

@@ -1,7 +1,8 @@
 """Build, load and dispatch the package's hand-written CUDA kernels.
 
-The sources in `csrc/` are compiled with `nvcc` for `sm_90a` (Hopper) into
-one shared library with a plain C interface, bound with `ctypes`. The
+The sources in `csrc/` are compiled with `nvcc` for `sm_90a` (Hopper), one
+`nvcc` process per source, all started together, and linked into one
+shared library with a plain C interface, bound with `ctypes`. The
 library is built at first use into `build/kernels/<hash>/` at the root of
 the checkout, keyed by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one is loaded as is. Nothing is built or loaded
@@ -36,8 +37,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmsa_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 )
 
 # kernel name -> number of launches through its wrapper
@@ -46,16 +46,26 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,    # K2
     "msda_multi_level": 0,   # K3 (injectors, L > 1)
     "msda_single_level": 0,  # K4 (extractors, L == 1)
+    "convnext_block": 0,     # K5 (the twin ConvNeXt's blocks)
+    "pixel_shuffle_up_bn": 0,  # K6 (the eval f1 assembly)
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "msa_window_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP],
     "msa_flash_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I,
                             _VP],
     "msa_deform_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                         ctypes.POINTER(_I), _I, _VP],
+    "msa_convnext_block": [_VP] * 11 + [_I, _I, _I, _I, _I, _F, _I, _VP,
+                                        _VP, _I, _VP],
+    "msa_convnext_block_plan": [_I, _I, _I, _I, _I, _I,
+                                ctypes.POINTER(_I)],
+    "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
+                                _LL, _LL, _LL, _LL, _VP, _VP, _VP, _I, _I,
+                                _I, _I, _I, _I, _VP],
 }
 
 
@@ -122,25 +132,46 @@ def build_dir() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library (once per source hash)."""
+    """Compile csrc/*.cu into the shared library (once per source hash):
+    one nvcc per source, all running at once, then one link."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    verbose_flags = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *verbose_flags, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+               "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{out}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if not failed:
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *[str(obj) for obj, _ in jobs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stdout}")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     _state.build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     if verbose:
-        print(res.stdout + res.stderr)
+        print("".join(logs))
     os.replace(tmp, lib)
     return lib
 

@@ -49,6 +49,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 FAMILIES: Tuple[Tuple[str, str], ...] = (
     ("K1/K2 attention", r"rel_pos_attention"),
     ("K3/K4 msda", r"msda_kernel"),
+    ("K5 convnext block", r"convnext_block"),
+    ("K6 f1 assembly", r"pixel_shuffle"),
     ("plain grid_sample", r"grid_sampler"),
     ("conv (cuDNN)", r"conv|tensorTransformGeneric|cudnn|fprop"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|cutlass|xmma"),

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from kernel_checks import (
-    KERNELS, TOLERANCES, flagship_case, plain_reference)
+    CONVNEXT_RAGGED, KERNELS, PIXEL_SHUFFLE_RAGGED, TOLERANCES,
+    convnext_case, flagship_case, flagship_shapes, pixel_shuffle_case,
+    plain_reference)
 from multimodal_sam_adapter_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -30,12 +32,7 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("name", sorted(KERNELS))
-def test_kernel_matches_plain_at_flagship_shapes(name, dtype):
-    dev = _card()
-    g = torch.Generator(device=dev).manual_seed(0)
-    fn, args = flagship_case(name, DTYPES[dtype], g)
+def _check_launch(name, fn, args, dt):
     before = kernels.LAUNCHES[name]
     got = fn(*args)
     torch.cuda.synchronize()
@@ -43,8 +40,35 @@ def test_kernel_matches_plain_at_flagship_shapes(name, dtype):
     want = plain_reference(fn, args)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(),
-                               **TOLERANCES[DTYPES[dtype]])
+    torch.testing.assert_close(got.float(), want.float(), **TOLERANCES[dt])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name,shape", [
+    (n, s) for n in sorted(KERNELS) for s in flagship_shapes(n)])
+def test_kernel_matches_plain_at_flagship_shapes(name, shape, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    fn, args = flagship_case(name, DTYPES[dtype], g, shape)
+    _check_launch(name, fn, args, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name,shape,batch", [
+    *(("convnext_block", s, 1) for s in CONVNEXT_RAGGED),
+    ("convnext_block", CONVNEXT_RAGGED[0], 3),
+    *(("pixel_shuffle_up_bn", s, 1) for s in PIXEL_SHUFFLE_RAGGED),
+    ("pixel_shuffle_up_bn", PIXEL_SHUFFLE_RAGGED[-1], 3)])
+def test_convnext_and_pixel_shuffle_at_ragged_shapes(name, shape, batch,
+                                                     dtype):
+    """The FMB (800^2) widths that fill no tile (K5 at 25x25x768 and
+    50x50x384, K6 from a 100x100 grid), the narrow test widths (atto
+    C = 40, embed 32), and batch 3 (slide mode's window batch)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    case = convnext_case if name == "convnext_block" else pixel_shuffle_case
+    fn, args = case(*shape, DTYPES[dtype], g, batch=batch)
+    _check_launch(name, fn, args, DTYPES[dtype])
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -105,9 +129,11 @@ def test_tiny_model_kernel_path_matches_plain_path():
         counts = dict(kernels.LAUNCHES)
         with kernels.plain_kernels():
             want = model(x)
-    # deliver_tiny: 2 windowed + 2 global blocks, 4 injectors, 6 extractors
+    # deliver_tiny: 2 windowed + 2 global blocks, 4 injectors, 6 extractors,
+    # 2 x 12 atto ConvNeXt blocks, the f1 assembly
     assert counts == {"window_attention": 2, "flash_attention": 2,
-                      "msda_multi_level": 4, "msda_single_level": 6}
+                      "msda_multi_level": 4, "msda_single_level": 6,
+                      "convnext_block": 24, "pixel_shuffle_up_bn": 1}
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 

@@ -88,8 +88,8 @@ def test_inference_engine_whole_dim_matches_jax(tiny):
     np.testing.assert_array_equal(pred.numpy(), probs.argmax(-1))
     whole = InferenceEngine(model, dict(mode="whole"))
     assert whole.predict(torch.from_numpy(x)).shape == (2, IMG, IMG)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(model, dict(mode="slide"))
+    with pytest.raises(ValueError):
+        InferenceEngine(model, dict(mode="sliding"))
 
 
 def test_bridge_round_trip_gives_back_the_checkpoint():

@@ -33,6 +33,9 @@ def test_busy_time_is_the_union_of_device_intervals():
 
 @pytest.mark.parametrize("name, fam", [
     ("void msa::msda_kernel<__nv_bfloat16>(...)", "K3/K4 msda"),
+    ("void msa::convnext_block_mma_kernel<4, 4>(msa::CbArgs)",
+     "K5 convnext block"),
+    ("void msa::pixel_shuffle_mma_kernel(msa::PsArgs)", "K6 f1 assembly"),
     ("void implicit_convolve_sgemm<__nv_bfloat16, 1024>", "conv (cuDNN)"),
     ("void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16_gemm>", "GEMM (cuBLAS)"),
     ("void at::native::vectorized_layer_norm_kernel<c10::BFloat16>", "norms"),
