@@ -10,9 +10,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit. No CUDA card: exit 2 at once.
 2. build: compile multimodal_sam_adapter_torch/csrc/*.cu with nvcc.
 3. kernels: K1-K6 at the flagship shapes (K5 at each of the four ConvNeXt
-   stages), each against its plain PyTorch version in float32 and bfloat16
-   (tolerances in kernel_checks.py), with CUDA-event times of kernel and
-   plain.
+   stages; K1 and K2 also at FMB's 800^2 and slide's batch-3 shapes), each
+   against its plain PyTorch version in float32 and bfloat16 (tolerances
+   in kernel_checks.py), with CUDA-event times of kernel and plain and
+   the card's bound for the same work; for K1 and K2 the time of one SDPA
+   call on the same inputs (bf16), the yardstick.
 4. forward: the full-width deliver_rgblidar EncoderDecoder (weights drawn
    from a seeded generator) on one 1024x1024x6 input in float32, kernel
    path against plain path, and the launch counts of that one forward.
@@ -58,18 +60,6 @@ FORWARD_RTOL_OF_MAX = 1e-3
 # phases 5-8: bf16 class maps of the kernel path against the plain path
 AGREE_MIN = 0.98
 
-# the DELIVER tables (multimodal_sam_adapter_tpu/data/datasets.py, which
-# reads images with OpenCV and is not imported here)
-DELIVER_CLASSES = (
-    "Building", "Fence", "Other", "Pedestrian", "Pole", "RoadLine", "Road",
-    "SideWalk", "Vegetation", "Cars", "Wall", "TrafficSign", "Sky", "Ground",
-    "Bridge", "RailTrack", "GroundRail", "TrafficLight", "Static", "Dynamic",
-    "Water", "Terrain", "TwoWheeler", "Bus", "Truck")
-DELIVER_CONDITIONS = ("cloud", "fog", "night", "rain", "sun")
-DELIVER_CASES = ("motionblur", "overexposure", "underexposure", "lidarjitter",
-                 "eventlowres")
-
-
 class PhaseError(RuntimeError):
     pass
 
@@ -111,16 +101,13 @@ def phase_build(kernels):
          nvcc_seconds=kernels.build_seconds(), lib=lib.name)
 
 
-def check_case(torch, kc, name, shape, dtype, tag):
-    """One kernel at one shape and dtype against its plain version, with
-    the CUDA-event times of both."""
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    fn, args = kc.flagship_case(name, dtype, g, shape)
+def check_case(torch, kc, name, label, case, dtype, tag):
+    """One kernel on one case (wrapper, args) against its plain version,
+    with the CUDA-event times of both and the card's bound for the work."""
+    fn, args = case
     got = fn(*args)
     want = kc.plain_reference(fn, args)
     torch.cuda.synchronize()
-    label = "flagship" if shape is None else "x".join(
-        str(v) for v in (shape[0], shape[0], shape[1]))
     check(torch.isfinite(got).all().item(), f"{name} {label} {tag}: "
                                             "non-finite")
     tol = kc.TOLERANCES[dtype]
@@ -128,6 +115,7 @@ def check_case(torch, kc, name, shape, dtype, tag):
     bound = tol["atol"] + tol["rtol"] * want.float().abs()
     abs_err = diff.max().item()
     rel_err = abs_err / want.float().abs().max().item()
+    bound_ms, bound_by = kc.bound_ms(name, args, got)
     # plain, kernel, kernel, plain: the two versions in turns
     with kc.kernels.plain_kernels():
         p1 = kc.time_ms(fn, args)
@@ -139,27 +127,63 @@ def check_case(torch, kc, name, shape, dtype, tag):
     line("kernels", name=name, shape=label, dtype=tag,
          max_abs_err=f"{abs_err:.3e}", err_over_max=f"{rel_err:.3e}",
          atol=tol["atol"], rtol=tol["rtol"], ms=f"{ms:.4f}",
-         plain_ms=f"{plain_ms:.4f}")
+         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+         bound_by=bound_by)
     check(bool((diff <= bound).all()),
           f"{name} {label} {tag}: kernel and plain disagree beyond {tol}")
-    return dict(shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return dict(shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_library(torch, kc, name, case):
+    """The yardstick: the fastest SDPA backend on the same inputs as the
+    kernel's flagship case (its operands built outside the timed calls),
+    and how far its output lies from the plain version's."""
+    fn, args = case
+    ms, backend, out = kc.time_library(name, args)
+    want = kc.plain_reference(fn, args)
+    # SDPA returns (batch, heads, N, d): heads-pack it as the kernels do
+    B, N, C = want.shape
+    got = out.transpose(1, 2).reshape(B, N, C)
+    err = (got.float() - want.float()).abs().max().item()
+    line("kernels", name=name, library="scaled_dot_product_attention",
+         backend=backend, library_ms=f"{ms:.4f}",
+         library_max_abs_err=f"{err:.3e}")
+    return dict(library_ms=ms, library_backend=backend,
+                library_max_abs_err=err)
 
 
 def phase_kernels(torch, kc):
     """One row per kernel; K5's row sums its four stage shapes (one block
-    at each stage) and keeps them under `shapes`."""
+    at each stage) and keeps them under `shapes`. K1 and K2 are checked
+    too at the FMB and batch-3 shapes (`ragged`, not summed) and timed
+    beside one SDPA call (bf16, flagship shapes)."""
     rows = []
     for name, meta in kc.KERNELS.items():
         row = dict(name=name, route="cuda", source=meta["source"],
-                   replaces=meta["replaces"])
+                   replaces=meta["replaces"], library_ms=None,
+                   library_backend=None)
+        attention = name in ("window_attention", "flash_attention")
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            cases = [check_case(torch, kc, name, shape, dtype, tag)
-                     for shape in kc.flagship_shapes(name)]
+            checked = [(on_path, check_case(torch, kc, name, label, case,
+                                            dtype, tag))
+                       for label, on_path, case in kc.cases(name, dtype,
+                                                            SEED)]
+            cases = [c for on_path, c in checked if on_path]
+            ragged = [c for on_path, c in checked if not on_path]
+            biggest = max(cases, key=lambda c: c["bound_ms"])
             row[tag] = dict(
                 max_abs_err=max(c["max_abs_err"] for c in cases),
                 ms=sum(c["ms"] for c in cases),
                 plain_ms=sum(c["plain_ms"] for c in cases),
-                shapes=cases if len(cases) > 1 else None)
+                bound_ms=sum(c["bound_ms"] for c in cases),
+                bound_by=biggest["bound_by"],
+                shapes=cases if len(cases) > 1 else None,
+                ragged=ragged or None)
+        if attention:
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            row.update(check_library(
+                torch, kc, name, kc.flagship_case(name, torch.bfloat16, g)))
         rows.append(row)
     return rows
 
@@ -237,12 +261,15 @@ def phase_serve(torch, kernels, engine, imgs):
 class DeliverSamples:
     """In-memory DELIVER-like samples: normalised (1024, 1024, 6) inputs,
     labels with ~5% ignored (255) pixels, conditions and cases in the meta
-    (every other sample has no case: 'ordinary')."""
-    CLASSES = DELIVER_CLASSES
-    CONDITIONS = DELIVER_CONDITIONS
-    CASES = DELIVER_CASES
+    (every other sample has no case: 'ordinary'), with the DELIVER class,
+    condition and case tables of the port's `data/datasets.py`."""
 
     def __init__(self, n, seed):
+        from multimodal_sam_adapter_torch.data.datasets import DELIVER
+
+        self.CLASSES = DELIVER.CLASSES
+        self.CONDITIONS = DELIVER.CONDITIONS
+        self.CASES = DELIVER.CASES
         rng = np.random.default_rng(seed)
         cases = (None, "motionblur", None, "overexposure")
         self.samples = []
@@ -400,6 +427,7 @@ def main():
     kind = phase_device(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import kernel_checks as kc
+    from multimodal_sam_adapter_torch.configs.registry import get_config
     from multimodal_sam_adapter_torch.engine.evaluator import (
         Evaluator, _pad_for_model)
     from multimodal_sam_adapter_torch.engine.inference import InferenceEngine
@@ -407,7 +435,6 @@ def main():
     from multimodal_sam_adapter_torch.models.twin_convnext import (
         ConvNeXtBlock)
     from multimodal_sam_adapter_torch.ops import kernels
-    from multimodal_sam_adapter_tpu.configs.registry import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -447,8 +474,9 @@ def main():
         f32, bf = row.pop("f32"), row.pop("bf16")
         out.append(dict(row, launches=counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
-                        plain_ms=bf["plain_ms"], dtype="bfloat16",
-                        shapes=bf["shapes"], f32=f32))
+                        plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
+                        bound_by=bf["bound_by"], dtype="bfloat16",
+                        shapes=bf["shapes"], ragged=bf["ragged"], f32=f32))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

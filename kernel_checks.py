@@ -4,15 +4,21 @@ shared by `chip_smoke.py` and the card tests (tests/test_torch_gpu.py).
 Each case draws its inputs from a seeded generator on the card and calls a
 kernel's public wrapper: as is it launches the kernel, inside
 `kernels.plain_kernels()` it runs the plain version on the same inputs.
+Beside each case: the least time the card could take for the same work
+(`bound_ms`) and, for the attention kernels, one PyTorch call that computes
+the same function (`library_case`), timed as a yardstick only.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from multimodal_sam_adapter_torch.models.adapter import reference_points
 from multimodal_sam_adapter_torch.ops import kernels
+from multimodal_sam_adapter_torch.ops.attention import (rel_pos_bias_terms,
+                                                        split_heads)
 from multimodal_sam_adapter_torch.ops.convnext_block import convnext_block
 from multimodal_sam_adapter_torch.ops.flash_attention import flash_attention
 from multimodal_sam_adapter_torch.ops.msda_cuda import ms_deform_attn
@@ -96,6 +102,18 @@ PIXEL_SHUFFLE_FLAGSHIP = (128, EMBED)
 # narrow widths of the test configurations (atto trunk, embed 32)
 CONVNEXT_RAGGED = ((25, 768), (50, 384), (16, 40))
 PIXEL_SHUFFLE_RAGGED = ((100, EMBED), (8, 32))
+# K1 / K2 at the other test modes' shapes: FMB's 800^2 is a 50x50 token
+# grid (padded to 56 for the windows: 16 of them; the global grid's
+# 127-row pretrained tables resized to 99 rows), slide runs 3 crops a
+# forward (75 windows, B = 3)
+ATTENTION_RAGGED = (("fmb", dict(grid=50, table_rows=2 * GRID - 1)),
+                    ("batch3", dict(batch=3)))
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense): device memory
+# bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_TENSOR_BF16 = 989e12
+PEAK_FP32 = 67e12
 
 
 def _randn(shape, g, dtype, scale=1.0):
@@ -152,19 +170,8 @@ def flagship_case(name: str, dtype: torch.dtype, g: torch.Generator,
         return convnext_case(*shape, dtype, g)
     if name == "pixel_shuffle_up_bn":
         return pixel_shuffle_case(*PIXEL_SHUFFLE_FLAGSHIP, dtype, g)
-    if name == "window_attention":
-        windows = (-(-GRID // WINDOW)) ** 2  # 64 padded to 70: 25 windows
-        qkv = _randn((windows, WINDOW * WINDOW, 3 * EMBED), g, dtype)
-        rph = _randn((2 * WINDOW - 1, EMBED // HEADS), g, dtype, 0.5)
-        rpw = _randn((2 * WINDOW - 1, EMBED // HEADS), g, dtype, 0.5)
-        return window_attention, (qkv, rph, rpw, WINDOW, HEADS,
-                                  (EMBED // HEADS) ** -0.5)
-    if name == "flash_attention":
-        qkv = _randn((1, GRID * GRID, 3 * EMBED), g, dtype)
-        rph = _randn((2 * GRID - 1, EMBED // HEADS), g, dtype, 0.5)
-        rpw = _randn((2 * GRID - 1, EMBED // HEADS), g, dtype, 0.5)
-        return flash_attention, (qkv, rph, rpw, (GRID, GRID), HEADS,
-                                 (EMBED // HEADS) ** -0.5)
+    if name in ("window_attention", "flash_attention"):
+        return attention_case(name, dtype, g)
     if name == "msda_multi_level":   # injector: ViT tokens <- pyramid
         q_shapes, v_shapes = ((GRID, GRID),), PYRAMID
     elif name == "msda_single_level":  # extractor: pyramid <- ViT tokens
@@ -182,3 +189,224 @@ def flagship_case(name: str, dtype: torch.dtype, g: torch.Generator,
     logits = _randn((1, Lq, DEF_HEADS * L * DEF_POINTS), g, dtype)
     return ms_deform_attn, (value, v_shapes, ref, offs, logits, DEF_HEADS,
                             DEF_POINTS)
+
+
+def cases(name: str, dtype: torch.dtype, seed: int = 0):
+    """Every case of one kernel: (label, on_main_path, (wrapper, args)).
+    The flagship shapes (K5: its four stages) are on the main path; K1 and
+    K2 also run at `ATTENTION_RAGGED`. Each case draws from its own
+    generator seeded with `seed`."""
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    for shape in flagship_shapes(name):
+        label = "flagship" if shape is None else "x".join(
+            str(v) for v in (shape[0], shape[0], shape[1]))
+        yield label, True, flagship_case(name, dtype, gen(), shape)
+    if name in ("window_attention", "flash_attention"):
+        for label, kw in ATTENTION_RAGGED:
+            yield label, False, attention_case(name, dtype, gen(), **kw)
+
+
+def attention_case(name: str, dtype: torch.dtype, g: torch.Generator,
+                   batch: int = 1, grid: int = GRID,
+                   table_rows: Optional[int] = None
+                   ) -> Tuple[Callable, tuple]:
+    """K1 or K2 for `batch` images of a grid x grid token map of ViT-L:
+    K1 over its 14x14 windows (the map zero-padded to whole windows), K2
+    over the whole grid with rel-pos tables of `table_rows` rows (default
+    2 * grid - 1, the grid's own; other lengths are resized)."""
+    d = EMBED // HEADS
+    if name == "window_attention":
+        windows = batch * (-(-grid // WINDOW)) ** 2  # 64 padded to 70: 25
+        qkv = _randn((windows, WINDOW * WINDOW, 3 * EMBED), g, dtype)
+        rows, hw = 2 * WINDOW - 1, WINDOW
+        fn = window_attention
+    elif name == "flash_attention":
+        qkv = _randn((batch, grid * grid, 3 * EMBED), g, dtype)
+        rows, hw = table_rows or 2 * grid - 1, (grid, grid)
+        fn = flash_attention
+    else:
+        raise KeyError(name)
+    rph = _randn((rows, d), g, dtype, 0.5)
+    rpw = _randn((rows, d), g, dtype, 0.5)
+    return fn, (qkv, rph, rpw, hw, HEADS, d ** -0.5)
+
+
+def _attention_geometry(args) -> Tuple[int, int, int, Tuple[int, int]]:
+    """(batch x heads, tokens, head width, (H, W)) of K1 / K2 args."""
+    qkv, _, _, hw, heads, _ = args
+    hw = (hw, hw) if isinstance(hw, int) else tuple(hw)
+    return (qkv.shape[0] * heads, qkv.shape[1], qkv.shape[2] // (3 * heads),
+            hw)
+
+
+def library_case(name: str, args: tuple) -> Tuple[Callable, tuple]:
+    """One `F.scaled_dot_product_attention` call computing what K1 / K2
+    compute on `args`: contiguous q, k, v (windows | B, heads, N, d) and
+    the decomposed rel-pos bias materialised as the bf16 (or float32)
+    `attn_mask` (windows | B, heads, N, N), from the unscaled q as the
+    kernels take it. The operands are built here, outside any timed call;
+    the 4-D form is the one SDPA's fused backends accept."""
+    if name not in ("window_attention", "flash_attention"):
+        raise KeyError(f"{name}: no single library call computes it")
+    qkv, rph, rpw, _, heads, scale = args
+    BM, N, d, (H, W) = _attention_geometry(args)
+    q, k, v = (t.reshape(-1, heads, N, d).contiguous()
+               for t in split_heads(qkv, heads))
+    rel_h, rel_w = rel_pos_bias_terms(q.view(BM, N, d).float(), rph.float(),
+                                      rpw.float(), (H, W), (H, W))
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
+        -1, heads, N, N)
+    return _sdpa, (q, k, v, bias.to(qkv.dtype), scale)
+
+
+def _sdpa(q, k, v, bias, scale):
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                          scale=scale)
+
+
+def time_library(name: str, args: tuple, iters: int = 10
+                 ) -> Tuple[float, str, torch.Tensor]:
+    """The fastest SDPA backend that accepts `library_case(name, args)`:
+    (ms per call, backend name, its output)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fn, largs = library_case(name, args)
+    best = None
+    for backend in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                    "CUDNN_ATTENTION", "MATH"):
+        if not hasattr(SDPBackend, backend):
+            continue
+        with sdpa_kernel([getattr(SDPBackend, backend)]), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "...not used because..."
+            try:
+                out = fn(*largs)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            ms = time_ms(fn, largs, iters=iters)
+        if best is None or ms < best[0]:
+            best = (ms, backend.lower(), out)
+    if best is None:
+        raise RuntimeError(f"{name}: no SDPA backend takes the call")
+    return best
+
+
+def work(name: str, args: tuple, out: torch.Tensor) -> Dict[str, float]:
+    """What the function must do on `args`, whatever a kernel does again:
+    bytes (each tensor input read once, the output written once) and
+    operations, split into those of the tensor cores (matrix products; in
+    float32 they run on the CUDA cores all the same) and the rest."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if torch.is_tensor(a)) + out.numel() * out.element_size()
+    tensor_ops = other_ops = 0.0
+    if name in ("window_attention", "flash_attention"):
+        BM, N, d, (H, W) = _attention_geometry(args)
+        # q.k and p.v; q against the gathered rel-pos rows of each (query,
+        # key row) and (query, key column); bias add, max, exp, sum, scale
+        tensor_ops = BM * (4.0 * N * N * d + 2.0 * N * (H + W) * d)
+        other_ops = BM * 6.0 * N * N
+    elif name in ("msda_multi_level", "msda_single_level"):
+        value, shapes, _, offs, _, heads, points = args
+        B, Lq, _ = offs.shape
+        D = value.shape[-1] // heads
+        samples = B * Lq * heads * len(shapes) * points
+        # four corner weights and a bilinear sum of D values per sample
+        other_ops = samples * (16.0 + 8.0 * D)
+    elif name == "convnext_block":
+        x = args[0]
+        B, H, W, C = x.shape
+        P = B * H * W
+        tensor_ops = 2.0 * P * C * 4 * C * 2          # fc1 and fc2
+        # dwconv 7x7, LayerNorm, GELU of the 4C hidden units, gamma, add
+        other_ops = P * C * (2.0 * 49 + 10 + 4 * 8)
+    elif name == "pixel_shuffle_up_bn":
+        c2, weight = args[0], args[1]
+        B, C, H, W = c2.shape
+        O = weight.shape[1]
+        tensor_ops = 2.0 * B * H * W * C * 4 * O
+        other_ops = 4.0 * B * H * W * 4 * O            # + c1 + x1, affine
+    else:
+        raise KeyError(name)
+    return dict(bytes=float(nbytes), tensor_ops=tensor_ops,
+                other_ops=other_ops)
+
+
+def bound_ms(name: str, args: tuple, out: torch.Tensor
+             ) -> Tuple[float, str]:
+    """The least time the card could take for `work(name, args, out)`:
+    the larger of its bytes over the memory rate and its operations over
+    the peak rates of their type (bf16 matrix products on the tensor
+    cores, everything else, float32 products too, at the float32 rate;
+    the two kinds of unit run side by side, so the slower one counts).
+    Returns (ms, "bytes" or "operations")."""
+    w = work(name, args, out)
+    bytes_s = w["bytes"] / PEAK_BYTES_PER_S
+    if out.dtype == torch.bfloat16:
+        ops_s = max(w["tensor_ops"] / PEAK_TENSOR_BF16,
+                    w["other_ops"] / PEAK_FP32)
+    else:
+        ops_s = (w["tensor_ops"] + w["other_ops"]) / PEAK_FP32
+    if bytes_s >= ops_s:
+        return bytes_s * 1e3, "bytes"
+    return ops_s * 1e3, "operations"
+
+
+def main(argv=None) -> None:
+    """Check kernels against their plain versions on the card, built from
+    the package's csrc/ or from another copy of it (`--csrc`, for a
+    mutation check: build and check each copy in a process of its own).
+    One JSON line per case: the largest error and its largest ratio to the
+    tolerance (with `--time`, the kernel's ms per call); exit 1 if a case
+    is past it."""
+    import argparse
+    import json
+    from pathlib import Path
+
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
+    ap.add_argument("--csrc", type=Path,
+                    help="a copy of csrc/ to build (into kernels/ beside it)")
+    ap.add_argument("--names", nargs="+", default=list(KERNELS),
+                    choices=list(KERNELS))
+    ap.add_argument("--dtypes", nargs="+", default=["bf16"],
+                    choices=["f32", "bf16"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--time", action="store_true",
+                    help="also time each case (CUDA events, 20 calls)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("the kernel checks need a CUDA card")
+    if args.csrc is not None:
+        kernels.CSRC = args.csrc.resolve()
+        kernels.BUILD_ROOT = args.csrc.resolve().parent / "kernels"
+    kernels.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    failed = False
+    for name in args.names:
+        for tag in args.dtypes:
+            tol = TOLERANCES[dtypes[tag]]
+            for label, _, (fn, fargs) in cases(name, dtypes[tag], args.seed):
+                got = fn(*fargs)
+                want = plain_reference(fn, fargs).float()
+                diff = (got.float() - want).abs()
+                ratio = (diff / (tol["atol"] + tol["rtol"] * want.abs()))
+                ratio = ratio.nan_to_num(float("inf")).max().item()
+                failed |= not ratio <= 1.0
+                res = dict(
+                    name=name, shape=label, dtype=tag,
+                    max_abs_err=diff.nan_to_num(float("inf")).max().item(),
+                    worst_err_over_tolerance=ratio)
+                if args.time:
+                    res["ms"] = time_ms(fn, fargs, iters=20)
+                print(json.dumps(res), flush=True)
+    raise SystemExit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -19,9 +19,10 @@
 // feature order f = s*C + h*D + dd (s = 0/1/2 for q/k/v); out is the
 // heads-packed (nb, N, C). Neither side needs a head-split transpose.
 //
-// This file holds the float32 kernel, on the CUDA cores; bfloat16 inputs go
-// to the tensor-core kernel of rel_pos_attention_mma.cuh, which computes the
-// same thing. dispatch_rel_pos_attention (below) picks by dtype.
+// This file holds the float32 kernel, on the CUDA cores (the float32
+// forward parity check runs it); bfloat16 inputs go to the wgmma kernel of
+// rel_pos_attention_wgmma.cuh, which computes the same thing from the
+// ungathered tables.
 //
 // Design of the float32 kernel:
 //   - one block per (query tile of kBQ, nb*heads); one thread per query. The
@@ -39,7 +40,6 @@
 #pragma once
 
 #include "common.cuh"
-#include "rel_pos_attention_mma.cuh"
 
 namespace msa {
 
@@ -218,34 +218,27 @@ cudaError_t launch_rel_pos_attention(const void* qkv, const void* rel_a,
   return cudaGetLastError();
 }
 
-// Instantiates the kernels for SAM ViT-B/L's head width 64 and the narrow
-// test configurations' 16 and 32; any other width is refused. bfloat16 runs
-// on the tensor cores, float32 on the CUDA cores.
+// Instantiates the float32 kernel for SAM ViT-B/L's head width 64 and the
+// narrow test configurations' 16 and 32; any other width is refused.
 template <bool kTables>
 int dispatch_rel_pos_attention(const void* qkv, const void* rel_a,
                                const void* rel_b, void* out, int nb,
                                int heads, int head_dim, int grid_h,
-                               int grid_w, float scale, int dtype,
-                               void* stream) {
+                               int grid_w, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MSA_ATTN_CASE(DIM)                                                   \
-  case DIM:                                                                  \
-    return dtype == kBFloat16                                                \
-               ? launch_rel_pos_attention_mma<DIM, kTables>(                 \
-                     qkv, rel_a, rel_b, out, nb, heads, grid_h, grid_w,      \
-                     scale, s)                                               \
-               : launch_rel_pos_attention<DIM, kTables>(                     \
-                     qkv, rel_a, rel_b, out, nb, heads, grid_h, grid_w,      \
-                     scale, s);
-  if (dtype != kFloat32 && dtype != kBFloat16) return cudaErrorInvalidValue;
   switch (head_dim) {
-    MSA_ATTN_CASE(16)
-    MSA_ATTN_CASE(32)
-    MSA_ATTN_CASE(64)
+    case 16:
+      return launch_rel_pos_attention<16, kTables>(
+          qkv, rel_a, rel_b, out, nb, heads, grid_h, grid_w, scale, s);
+    case 32:
+      return launch_rel_pos_attention<32, kTables>(
+          qkv, rel_a, rel_b, out, nb, heads, grid_h, grid_w, scale, s);
+    case 64:
+      return launch_rel_pos_attention<64, kTables>(
+          qkv, rel_a, rel_b, out, nb, heads, grid_h, grid_w, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
-#undef MSA_ATTN_CASE
 }
 
 }  // namespace msa

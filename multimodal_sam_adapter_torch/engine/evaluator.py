@@ -2,8 +2,8 @@
 
 The counterpart of multimodal_sam_adapter_tpu/engine/evaluator.py. The
 histograms, the flat mIoU and the DELIVER condition x case report come from
-the JAX package's numpy-only `engine/metrics.py`, so both packages score
-with the same code:
+the port's `engine/metrics.py`, a copy of the JAX package's (held equal to
+it by tests/test_torch_shared_copies.py):
 
 - per sample: inference -> argmax -> per-image intersect/union histogram;
 - DELIVER: each image goes to nested[condition][case] by its meta, then the
@@ -30,12 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multimodal_sam_adapter_tpu.engine.metrics import (
-    Hist, _sum_hists, format_metrics_table, intersect_and_union,
-    pre_eval_to_metrics, pre_eval_to_metrics_dict, render_nested_report)
-
 from ..utils.interpolate import resize_bilinear
 from .inference import InferenceEngine
+from .metrics import (Hist, _sum_hists, format_metrics_table,
+                      intersect_and_union, pre_eval_to_metrics,
+                      pre_eval_to_metrics_dict, render_nested_report)
 
 
 def _pad_for_model(img: np.ndarray, multiple: int = 32):

@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from ..utils.interpolate import interp_linear_1d
+from . import kernels
 
 
 def window_partition(x: torch.Tensor, window_size: int):
@@ -45,13 +46,42 @@ def window_unpartition(windows: torch.Tensor, window_size: int,
     return x
 
 
+def resized_rel_table(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
+    """The (L, C) rel-pos table linearly resized to the 2 * size - 1 rows of
+    a grid side of `size` (returned as is when it has them)."""
+    return interp_linear_1d(rel_pos, 2 * size - 1)
+
+
+def rel_table_parts(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
+    """The bf16 kernels' form of a rel-pos table for a grid side of `size`:
+    (parts, 2 * size - 1, C) bf16. A bf16 table of 2 * size - 1 rows is
+    its own single part (a view, no copy); any other table is resized in
+    float32 and split into (hi, lo) with hi + lo equal to the float32
+    table to ~2^-16 relative (bf16 alone would move the bias by ~1e-2)."""
+    if rel_pos.dtype == torch.bfloat16 and rel_pos.shape[0] == 2 * size - 1:
+        return rel_pos.contiguous()[None]
+    t = resized_rel_table(rel_pos.float(), size)
+    hi = t.to(torch.bfloat16)
+    return torch.stack((hi, (t - hi.float()).to(torch.bfloat16)))
+
+
+def check_table_parts(name: str, t: torch.Tensor, rows: int,
+                      d: int) -> None:
+    """The bf16 kernels' check of a `rel_table_parts` table: (1 or 2
+    parts, rows, d) bf16, contiguous, on the card."""
+    kernels.check_operand(name, t, torch.bfloat16)
+    if t.dim() != 3 or t.shape[0] not in (1, 2) or tuple(t.shape[1:]) != (
+            rows, d):
+        raise ValueError(f"{name}: expected (1 or 2, {rows}, {d}), got "
+                         f"{tuple(t.shape)}")
+
+
 def get_rel_pos(q_size: int, k_size: int,
                 rel_pos: torch.Tensor) -> torch.Tensor:
     """Rel-pos rows for every (query, key) offset: (q_size, k_size, C).
     The table is linearly resized to 2 * max(q, k) - 1 rows first when it
     has another length."""
-    max_rel_dist = 2 * max(q_size, k_size) - 1
-    rel_pos = interp_linear_1d(rel_pos, max_rel_dist)
+    rel_pos = resized_rel_table(rel_pos, max(q_size, k_size))
     dev = rel_pos.device
     q_coords = (torch.arange(q_size, device=dev)[:, None]
                 * max(k_size / q_size, 1.0))

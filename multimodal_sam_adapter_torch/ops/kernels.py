@@ -39,6 +39,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 )
+# the attention kernels find cuTensorMapEncodeTiled with dlopen/dlsym
+LINK_FLAGS = ("-ldl",)
 
 # kernel name -> number of launches through its wrapper
 LAUNCHES: Dict[str, int] = {
@@ -54,9 +56,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "msa_window_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP],
-    "msa_flash_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I,
+    "msa_window_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
+    "msa_window_attention_bf16": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _VP],
+    "msa_flash_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
                             _VP],
+    "msa_flash_attention_bf16": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _VP],
     "msa_deform_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                         ctypes.POINTER(_I), _I, _VP],
     "msa_convnext_block": [_VP] * 11 + [_I, _I, _I, _I, _I, _F, _I, _VP,
@@ -127,7 +133,7 @@ def build_dir() -> Path:
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -161,7 +167,7 @@ def build(verbose: bool = False) -> Path:
     if not failed:
         res = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-             *[str(obj) for obj, _ in jobs]],
+             *[str(obj) for obj, _ in jobs], *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if res.returncode != 0:
             failed.append(f"link ({res.returncode}):\n{res.stdout}")

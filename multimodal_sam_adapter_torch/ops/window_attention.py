@@ -2,33 +2,84 @@
 
 `window_attention` takes the raw (windows, N, 3*C) qkv projection and
 returns the heads-packed (windows, N, C) output. On a CUDA tensor it
-launches the hand-written kernel (csrc/window_attention.cu), on a CPU tensor
-it runs the plain version, `window_attention_plain`.
+launches the hand-written kernel (csrc/window_attention.cu): bfloat16 on
+the wgmma/TMA core from the (2 ws - 1, d) tables (`rel_table_parts`) and
+the window's 0/1 expansion tiles (`window_expansion`), float32 on the CUDA
+cores from get_rel_pos's gathered (N, d) tables. On a CPU tensor it runs
+the plain version, `window_attention_plain`.
 
 Replaces multimodal_sam_adapter_tpu/ops/window_attention.py:
 window_attention_laneblock_fwd (Pallas).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import kernels
-from .attention import (attention_with_decomposed_rel_pos, get_rel_pos,
-                        merge_heads, split_heads)
+from .attention import (attention_with_decomposed_rel_pos,
+                        check_table_parts, get_rel_pos, merge_heads,
+                        rel_table_parts, split_heads)
+
+# keys per tile of the bf16 kernel: a window's ws^2 keys, zero-padded
+WINDOW_TILES = (64, 208)
+# slots of the expansion tiles: a grid row or column (< 15) each, the last
+# one the mask of the padding keys
+EXPANSION_SLOTS = 16
+
+
+def window_keys_per_tile(ws: int) -> int:
+    """Keys per tile of the bf16 kernel for a ws x ws window (its whole K
+    and V stay resident): the smallest of WINDOW_TILES that holds ws^2
+    keys. SAM's 14 x 14 windows take 208 (196 + 12 masked)."""
+    for bk in WINDOW_TILES:
+        if ws * ws <= bk:
+            return bk
+    raise ValueError(f"window {ws}x{ws}: the bf16 kernel holds at most "
+                     f"{WINDOW_TILES[-1]} keys")
+
+
+def window_expansion(ws: int, keys: int) -> torch.Tensor:
+    """The bf16 kernel's 0/1 expansion tiles for a ws x ws window in a tile
+    of `keys` keys: (2, keys, 16) float32. Row c of tile 0 has a 1 in slot
+    c // ws (the key's grid row) or, for a padding key c >= ws^2, in slot
+    15; row c of tile 1 a 1 in slot c % ws (its grid column), none for a
+    padding key. A query's 16 slots of rel_h terms (slot 15: the mask)
+    times tile 0, plus its rel_w slots times tile 1, is its bias of every
+    key: the kernel adds it to q.k on the tensor cores."""
+    if ws >= EXPANSION_SLOTS or ws * ws > keys:
+        raise ValueError(f"window {ws}x{ws} in {keys} keys: no expansion")
+    c = torch.arange(keys)
+    valid = c < ws * ws
+    e = torch.zeros((2, keys, EXPANSION_SLOTS))
+    e[0, c[valid], c[valid] // ws] = 1
+    e[0, c[~valid], EXPANSION_SLOTS - 1] = 1
+    e[1, c[valid], c[valid] % ws] = 1
+    return e
+
+
+@functools.lru_cache(maxsize=None)
+def _expansion_on(ws: int, keys: int, device: torch.device) -> torch.Tensor:
+    return window_expansion(ws, keys).to(device=device, dtype=torch.bfloat16)
 
 
 def window_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                      rel_pos_w: torch.Tensor, ws: int, num_heads: int,
                      scale: float) -> torch.Tensor:
-    if kernels.use_kernel(qkv):
-        N = ws * ws
-        d = qkv.shape[-1] // (3 * num_heads)
-        rh = get_rel_pos(ws, ws, rel_pos_h).reshape(N, d).to(qkv.dtype)
-        rw = get_rel_pos(ws, ws, rel_pos_w).reshape(N, d).to(qkv.dtype)
-        return window_attention_cuda(qkv, rh.contiguous(), rw.contiguous(),
-                                     ws, num_heads, scale)
-    return window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws, num_heads,
-                                  scale)
+    if not kernels.use_kernel(qkv):
+        return window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws,
+                                      num_heads, scale)
+    if qkv.dtype == torch.bfloat16:
+        return window_attention_bf16_cuda(
+            qkv, rel_table_parts(rel_pos_h, ws),
+            rel_table_parts(rel_pos_w, ws), ws, num_heads, scale)
+    N = ws * ws
+    d = qkv.shape[-1] // (3 * num_heads)
+    rh = get_rel_pos(ws, ws, rel_pos_h).reshape(N, d).to(qkv.dtype)
+    rw = get_rel_pos(ws, ws, rel_pos_w).reshape(N, d).to(qkv.dtype)
+    return window_attention_cuda(qkv, rh.contiguous(), rw.contiguous(), ws,
+                                 num_heads, scale)
 
 
 def window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws: int,
@@ -39,11 +90,7 @@ def window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws: int,
     return merge_heads(o, num_heads)
 
 
-def window_attention_cuda(qkv: torch.Tensor, rh: torch.Tensor,
-                          rw: torch.Tensor, ws: int, num_heads: int,
-                          scale: float) -> torch.Tensor:
-    """qkv (windows, ws*ws, 3*C); rh, rw: (ws*ws, d) get_rel_pos tables,
-    row qh * ws + kh. Returns (windows, ws*ws, C)."""
+def _check_qkv(qkv: torch.Tensor, ws: int, num_heads: int):
     Wn, N, F3 = qkv.shape
     C = F3 // 3
     d = C // num_heads
@@ -52,16 +99,47 @@ def window_attention_cuda(qkv: torch.Tensor, rh: torch.Tensor,
                          f"heads={num_heads}")
     if Wn * num_heads > 65535:
         raise ValueError(f"{Wn} windows x {num_heads} heads exceed the grid")
-    kernels.check_operand("qkv", qkv, qkv.dtype)
-    kernels.check_operand("rh", rh, qkv.dtype, (N, d))
-    kernels.check_operand("rw", rw, qkv.dtype, (N, d))
+    return Wn, N, C, d
+
+
+def window_attention_cuda(qkv: torch.Tensor, rh: torch.Tensor,
+                          rw: torch.Tensor, ws: int, num_heads: int,
+                          scale: float) -> torch.Tensor:
+    """float32: qkv (windows, ws*ws, 3*C); rh, rw: (ws*ws, d) get_rel_pos
+    tables, row qh * ws + kh. Returns (windows, ws*ws, C)."""
+    Wn, N, C, d = _check_qkv(qkv, ws, num_heads)
+    kernels.check_operand("qkv", qkv, torch.float32)
+    kernels.check_operand("rh", rh, torch.float32, (N, d))
+    kernels.check_operand("rw", rw, torch.float32, (N, d))
     out = torch.empty((Wn, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernels.library()
     with torch.cuda.device(qkv.device):
         status = lib.msa_window_attention(
             qkv.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-            Wn, num_heads, d, ws, float(scale), kernels.dtype_code(qkv),
-            kernels.current_stream(qkv))
+            Wn, num_heads, d, ws, float(scale), kernels.current_stream(qkv))
+    kernels.check_status("window_attention", status)
+    kernels.count_launch("window_attention")
+    return out
+
+
+def window_attention_bf16_cuda(qkv: torch.Tensor, th: torch.Tensor,
+                               tw: torch.Tensor, ws: int, num_heads: int,
+                               scale: float) -> torch.Tensor:
+    """bfloat16: qkv (windows, ws*ws, 3*C); th, tw: the (parts, 2 ws - 1,
+    d) rel-pos tables of `rel_table_parts`. Returns (windows, ws*ws, C)."""
+    Wn, N, C, d = _check_qkv(qkv, ws, num_heads)
+    bk = window_keys_per_tile(ws)
+    kernels.check_operand("qkv", qkv, torch.bfloat16)
+    check_table_parts("th", th, 2 * ws - 1, d)
+    check_table_parts("tw", tw, 2 * ws - 1, d)
+    ex = _expansion_on(ws, bk, qkv.device)
+    out = torch.empty((Wn, N, C), dtype=qkv.dtype, device=qkv.device)
+    lib = kernels.library()
+    with torch.cuda.device(qkv.device):
+        status = lib.msa_window_attention_bf16(
+            qkv.data_ptr(), th.data_ptr(), tw.data_ptr(), ex.data_ptr(),
+            out.data_ptr(), Wn, num_heads, d, ws, bk, th.shape[0],
+            tw.shape[0], float(scale), kernels.current_stream(qkv))
     kernels.check_status("window_attention", status)
     kernels.count_launch("window_attention")
     return out

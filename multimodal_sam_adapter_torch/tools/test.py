@@ -10,7 +10,7 @@
 <checkpoint> is a torch state_dict file with the reference checkpoint's key
 names (loaded strictly), or `random` for weights drawn from a torch.Generator
 seeded with 0. The dataset is read and preprocessed by the
-JAX package's `data/` (which needs OpenCV); the model runs on `--device`,
+port's `data/` (which reads images with OpenCV); the model runs on `--device`,
 `cuda` by default, which fails when there is no card. Writes
 eval_single_scale_<stamp>.json (eval_multi_scale_... with --aug-test) into
 --out-dir: the summary metrics, the condition x case results for DELIVER,
@@ -56,12 +56,8 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from multimodal_sam_adapter_tpu.configs.registry import (apply_overrides,
-                                                            get_config)
-    # data/ reads images with OpenCV: imported here, never by the engine
-    from multimodal_sam_adapter_tpu.data import build_dataset
-    from multimodal_sam_adapter_tpu.data.pipelines import TestPipeline
-
+    from ..configs.registry import apply_overrides, get_config
+    from ..data import TestPipeline, build_dataset
     from ..engine.evaluator import Evaluator
     from ..engine.inference import InferenceEngine
     from ..models.segmentor import build_segmentor

@@ -149,8 +149,7 @@ def profile_calls(fn: Callable[[], object], calls: int, trace_path: Path,
 
 
 def main(argv=None) -> None:
-    from multimodal_sam_adapter_tpu.configs.registry import get_config
-
+    from ..configs.registry import get_config
     from ..engine.inference import InferenceEngine
     from ..models.segmentor import build_segmentor
     from ..ops import kernels

@@ -29,7 +29,7 @@ from multimodal_sam_adapter_torch.engine.evaluator import Evaluator
 from multimodal_sam_adapter_torch.engine.inference import InferenceEngine
 from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
 from multimodal_sam_adapter_torch.tools import test as entry
-from multimodal_sam_adapter_tpu.configs.registry import get_config
+from multimodal_sam_adapter_torch.configs.registry import get_config
 from multimodal_sam_adapter_tpu.engine.convert_full import (
     convert_full_checkpoint)
 from multimodal_sam_adapter_tpu.engine.evaluator import (

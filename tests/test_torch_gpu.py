@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from kernel_checks import (
-    CONVNEXT_RAGGED, KERNELS, PIXEL_SHUFFLE_RAGGED, TOLERANCES,
-    convnext_case, flagship_case, flagship_shapes, pixel_shuffle_case,
-    plain_reference)
+    ATTENTION_RAGGED, CONVNEXT_RAGGED, KERNELS, PIXEL_SHUFFLE_RAGGED,
+    TOLERANCES, attention_case, convnext_case, flagship_case,
+    flagship_shapes, pixel_shuffle_case, plain_reference)
 from multimodal_sam_adapter_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -72,6 +72,20 @@ def test_convnext_and_pixel_shuffle_at_ragged_shapes(name, shape, batch,
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("label,kw", ATTENTION_RAGGED,
+                         ids=[label for label, _ in ATTENTION_RAGGED])
+@pytest.mark.parametrize("name", ["flash_attention", "window_attention"])
+def test_attention_kernels_at_fmb_and_batch3_shapes(name, label, kw, dtype):
+    """ViT-L's K1 and K2 at FMB's 800^2 (16 windows; a 50x50 global grid,
+    two rows of 50 keys to a tile, the 127-row tables resized to 99) and
+    at slide's batch of 3 crops (75 windows; B = 3)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    fn, args = attention_case(name, DTYPES[dtype], g, **kw)
+    _check_launch(name, fn, args, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("head_dim", [16, 32])
 @pytest.mark.parametrize("name", ["flash_attention", "window_attention"])
 def test_attention_kernels_at_narrow_ragged_shapes(name, head_dim, dtype):
@@ -116,7 +130,7 @@ def test_tiny_model_kernel_path_matches_plain_path():
     """The whole forward at the narrow test geometry (head width 16, MSDA
     head width 4) through the kernels and through the plain versions."""
     from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
-    from multimodal_sam_adapter_tpu.configs.registry import get_config
+    from multimodal_sam_adapter_torch.configs.registry import get_config
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)

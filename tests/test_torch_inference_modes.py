@@ -20,7 +20,7 @@ from multimodal_sam_adapter_torch.engine.convert import state_dict_from_jax
 from multimodal_sam_adapter_torch.engine.inference import (InferenceEngine,
                                                            slide_windows)
 from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
-from multimodal_sam_adapter_tpu.configs.registry import get_config
+from multimodal_sam_adapter_torch.configs.registry import get_config
 from multimodal_sam_adapter_tpu.engine.convert_full import (
     convert_full_checkpoint)
 from multimodal_sam_adapter_tpu.engine.inference import (

@@ -158,7 +158,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 from multimodal_sam_adapter_torch.engine.inference import InferenceEngine
 from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
-from multimodal_sam_adapter_tpu.configs.registry import get_config
+from multimodal_sam_adapter_torch.configs.registry import get_config
 cfg = get_config("deliver_tiny")
 model = build_segmentor(cfg["model"], "cpu",
                         generator=torch.Generator().manual_seed(0))
