@@ -10,11 +10,13 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit. No CUDA card: exit 2 at once.
 2. build: compile multimodal_sam_adapter_torch/csrc/*.cu with nvcc.
 3. kernels: K1-K6 at the flagship shapes (K5 at each of the four ConvNeXt
-   stages; K1 and K2 also at FMB's 800^2 and slide's batch-3 shapes), each
-   against its plain PyTorch version in float32 and bfloat16 (tolerances
-   in kernel_checks.py), with CUDA-event times of kernel and plain and
-   the card's bound for the same work; for K1 and K2 the time of one SDPA
-   call on the same inputs (bf16), the yardstick.
+   stages; K1 and K2 also at FMB's 800^2 and slide's batch-3 shapes, K5 at
+   the ragged FMB and test widths and at batch 3), each against its plain
+   PyTorch version in float32 and bfloat16 (tolerances in
+   kernel_checks.py), with CUDA-event times of kernel and plain and the
+   card's bound for the same work; for K1 and K2 the time of one SDPA call
+   on the same inputs (bf16), the yardstick; for K5 its ms per forward
+   (each stage's ms times its blocks).
 4. forward: the full-width deliver_rgblidar EncoderDecoder (weights drawn
    from a seeded generator) on one 1024x1024x6 input in float32, kernel
    path against plain path, and the launch counts of that one forward.
@@ -155,8 +157,9 @@ def check_library(torch, kc, name, case):
 
 def phase_kernels(torch, kc):
     """One row per kernel; K5's row sums its four stage shapes (one block
-    at each stage) and keeps them under `shapes`. K1 and K2 are checked
-    too at the FMB and batch-3 shapes (`ragged`, not summed) and timed
+    at each stage), keeps them under `shapes` and weighs them by the
+    stage's blocks in `per_forward_ms`. K1, K2 and K5 are checked too at
+    their off-path shapes (`ragged`, not summed); K1 and K2 are timed
     beside one SDPA call (bf16, flagship shapes)."""
     rows = []
     for name, meta in kc.KERNELS.items():
@@ -180,6 +183,15 @@ def phase_kernels(torch, kc):
                 bound_by=biggest["bound_by"],
                 shapes=cases if len(cases) > 1 else None,
                 ragged=ragged or None)
+            if name == "convnext_block":
+                for key in ("ms", "plain_ms"):
+                    row[tag]["per_forward_" + key] = sum(
+                        n * c[key] for n, c in zip(kc.CONVNEXT_STAGE_CALLS,
+                                                   cases))
+                line("kernels", name=name, dtype=tag, per_forward_ms=(
+                    f"{row[tag]['per_forward_ms']:.4f}"),
+                     plain_per_forward_ms=(
+                         f"{row[tag]['per_forward_plain_ms']:.4f}"))
         if attention:
             g = torch.Generator(device="cuda").manual_seed(SEED)
             row.update(check_library(
@@ -472,11 +484,14 @@ def main():
     out = []
     for row in rows:
         f32, bf = row.pop("f32"), row.pop("bf16")
+        extra = {k: bf[k] for k in ("per_forward_ms", "per_forward_plain_ms")
+                 if k in bf}
         out.append(dict(row, launches=counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
-                        shapes=bf["shapes"], ragged=bf["ragged"], f32=f32))
+                        shapes=bf["shapes"], ragged=bf["ragged"], f32=f32,
+                        **extra))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -94,8 +94,10 @@ def time_ms(fn: Callable, args: tuple, iters: int = 10,
 EMBED, HEADS, WINDOW, GRID = 1024, 16, 14, 64
 DEF_HEADS, DEF_POINTS, DEF_VALUE = 16, 4, 512
 PYRAMID = ((128, 128), (64, 64), (32, 32))
-# K5: (H = W, C) of the four ConvNeXt-small stages at 1024^2
+# K5: (H = W, C) of the four ConvNeXt-small stages at 1024^2, and the
+# blocks of each stage in one forward (3/3/27/3 a branch, two branches)
 CONVNEXT_STAGES = ((256, 96), (128, 192), (64, 384), (32, 768))
+CONVNEXT_STAGE_CALLS = (6, 6, 54, 6)
 # K6: (c2 grid side, embed) at 1024^2
 PIXEL_SHUFFLE_FLAGSHIP = (128, EMBED)
 # ragged shapes: the FMB (800^2) stage widths that fill no tile, and the
@@ -137,6 +139,18 @@ def convnext_case(hw: int, C: int, dtype: torch.dtype, g: torch.Generator,
         _randn((C, hid), g, dtype, hid ** -0.5),
         _randn((C,), g, dtype, 0.05),
         _randn((C,), g, dtype, 0.5))
+
+
+def convnext_with_guard(x, *params):
+    """K5 writing its output into the front of a buffer one image row
+    longer whose tail is zeroed first; returns the whole buffer, so that a
+    store past the last pixel shows as a nonzero tail (the plain version
+    leaves it zero)."""
+    B, H, W, C = x.shape
+    buf = torch.empty((B * H * W + W, C), dtype=x.dtype, device=x.device)
+    buf[B * H * W:].zero_()
+    convnext_block(x, *params, out=buf[:B * H * W].view(B, H, W, C))
+    return buf
 
 
 def pixel_shuffle_case(hw: int, E: int, dtype: torch.dtype,
@@ -191,21 +205,33 @@ def flagship_case(name: str, dtype: torch.dtype, g: torch.Generator,
                             DEF_POINTS)
 
 
+def _stage_label(shape) -> str:
+    return "x".join(str(v) for v in (shape[0], shape[0], shape[1]))
+
+
 def cases(name: str, dtype: torch.dtype, seed: int = 0):
     """Every case of one kernel: (label, on_main_path, (wrapper, args)).
     The flagship shapes (K5: its four stages) are on the main path; K1 and
-    K2 also run at `ATTENTION_RAGGED`. Each case draws from its own
-    generator seeded with `seed`."""
+    K2 also run at `ATTENTION_RAGGED`, K5 at `CONVNEXT_RAGGED` and at its
+    first ragged shape with batch 3, writing into a guarded buffer
+    (`convnext_with_guard`). Each case draws from its own generator seeded
+    with `seed`."""
     def gen():
         return torch.Generator(device="cuda").manual_seed(seed)
 
     for shape in flagship_shapes(name):
-        label = "flagship" if shape is None else "x".join(
-            str(v) for v in (shape[0], shape[0], shape[1]))
+        label = "flagship" if shape is None else _stage_label(shape)
         yield label, True, flagship_case(name, dtype, gen(), shape)
     if name in ("window_attention", "flash_attention"):
         for label, kw in ATTENTION_RAGGED:
             yield label, False, attention_case(name, dtype, gen(), **kw)
+    if name == "convnext_block":
+        ragged = [(s, 1) for s in CONVNEXT_RAGGED] + [(CONVNEXT_RAGGED[0], 3)]
+        for shape, batch in ragged:
+            _, args = convnext_case(*shape, dtype, gen(), batch=batch)
+            label = _stage_label(shape) + (f"_batch{batch}" if batch > 1
+                                           else "")
+            yield label, False, (convnext_with_guard, args)
 
 
 def attention_case(name: str, dtype: torch.dtype, g: torch.Generator,
@@ -301,6 +327,8 @@ def work(name: str, args: tuple, out: torch.Tensor) -> Dict[str, float]:
     bytes (each tensor input read once, the output written once) and
     operations, split into those of the tensor cores (matrix products; in
     float32 they run on the CUDA cores all the same) and the rest."""
+    if name == "convnext_block":  # out has x's shape (not a guarded buffer's)
+        out = args[0]
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if torch.is_tensor(a)) + out.numel() * out.element_size()
     tensor_ops = other_ops = 0.0
@@ -356,6 +384,30 @@ def bound_ms(name: str, args: tuple, out: torch.Tensor
     return ops_s * 1e3, "operations"
 
 
+def kernel_us(fn: Callable, args: tuple, trace: "Path", calls: int = 10
+              ) -> Dict[str, float]:
+    """Device microseconds per call of each kernel that `fn(*args)`
+    launches, by name, from a `torch.profiler` trace (written to
+    `trace`)."""
+    import json
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    us: Dict[str, float] = {}
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            name = e["name"].split("(")[0]
+            us[name] = us.get(name, 0.0) + float(e.get("dur", 0.0)) / calls
+    return us
+
+
 def main(argv=None) -> None:
     """Check kernels against their plain versions on the card, built from
     the package's csrc/ or from another copy of it (`--csrc`, for a
@@ -375,8 +427,13 @@ def main(argv=None) -> None:
     ap.add_argument("--dtypes", nargs="+", default=["bf16"],
                     choices=["f32", "bf16"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shapes", nargs="+",
+                    help="only the cases of these labels (e.g. 64x64x384)")
     ap.add_argument("--time", action="store_true",
                     help="also time each case (CUDA events, 20 calls)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also give each case's device us per kernel name "
+                         "(torch.profiler; traces under build/profiles/)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the kernel checks need a CUDA card")
@@ -392,6 +449,8 @@ def main(argv=None) -> None:
         for tag in args.dtypes:
             tol = TOLERANCES[dtypes[tag]]
             for label, _, (fn, fargs) in cases(name, dtypes[tag], args.seed):
+                if args.shapes and label not in args.shapes:
+                    continue
                 got = fn(*fargs)
                 want = plain_reference(fn, fargs).float()
                 diff = (got.float() - want).abs()
@@ -404,6 +463,10 @@ def main(argv=None) -> None:
                     worst_err_over_tolerance=ratio)
                 if args.time:
                     res["ms"] = time_ms(fn, fargs, iters=20)
+                if args.profile:
+                    res["kernel_us"] = kernel_us(
+                        fn, fargs, Path(__file__).resolve().parent / "build"
+                        / "profiles" / f"{name}_{label}_{tag}.json")
                 print(json.dumps(res), flush=True)
     raise SystemExit(1 if failed else 0)
 

@@ -60,8 +60,6 @@
 // layout), V read MN-major through the descriptor's transpose bit.
 #pragma once
 
-#include <dlfcn.h>
-
 #include <cstdint>
 
 #include "wgmma.cuh"
@@ -72,8 +70,6 @@ constexpr int kWgRows = 64;       // query rows per consumer warpgroup
 constexpr int kGlobalKeys = 128;  // K2: keys per tile (two grid rows of <= 64)
 constexpr int kGlobalTable = 128;  // K2: table rows (2 * 64 - 1, padded)
 constexpr int kWindowTable = 32;   // K1: table rows (2 * 16 - 1, padded)
-
-constexpr int align_1k(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 
 // Block shape of each layout.
 //   K2: two consumer warpgroups and a producer warpgroup, one block per SM;
@@ -125,11 +121,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // acc (64 x N) (+)= A (64 x D) B^T, A and B K-major tiles in shared memory
 template <int D, int N>
 __device__ __forceinline__ void product_qk(float (&acc)[N / 2],
@@ -142,7 +133,7 @@ __device__ __forceinline__ void product_qk(float (&acc)[N / 2],
   for (int k = 0; k < D / 16; ++k)  // a k16 step is 32 bytes: 2 units
     WgmmaSS<N>::run(acc, da + 2 * k, db + 2 * k, accumulate || k > 0);
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(acc);
 }
 
@@ -356,7 +347,7 @@ __global__ void __launch_bounds__(AttnShape<kWindow>::kThreads,
           }
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(s);
       }
 
@@ -433,7 +424,7 @@ __global__ void __launch_bounds__(AttnShape<kWindow>::kThreads,
           WgmmaRS<D, 1>::run(o, pf[kk], dv + kk * ((16 * L::kRow) >> 4),
                              !kWindow || kk > 0);
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(o);
       }
       mbar_arrive(&empty[st]);
@@ -459,43 +450,7 @@ __global__ void __launch_bounds__(AttnShape<kWindow>::kThreads,
   }
 }
 
-// ---- host side: tensor maps and launch
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver library the CUDA runtime has
-// loaded (the kernels' library links no libcuda)
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// a bf16 tensor of `rank` dims (innermost first), box `box`, swizzled at
-// the box's row width; out-of-bounds elements read as zeros
-template <int D>
-inline bool encode_map(CUtensorMap* map, const void* base, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<D>::kTma,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// ---- host side: launch
 
 // qkv (nb, N, 3C) bf16; th (th_parts, th_rows, D), tw (tw_parts, tw_rows,
 // D) bf16 tables as (hi[, lo]) parts; K1: ex (2, BK, 16) bf16, the 0/1

@@ -39,7 +39,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 )
-# the attention kernels find cuTensorMapEncodeTiled with dlopen/dlsym
+# the wgmma kernels (K1, K2, K5) find cuTensorMapEncodeTiled with
+# dlopen/dlsym
 LINK_FLAGS = ("-ldl",)
 
 # kernel name -> number of launches through its wrapper
@@ -65,10 +66,8 @@ _SIGNATURES = {
                                  _I, _I, _F, _VP],
     "msa_deform_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                         ctypes.POINTER(_I), _I, _VP],
-    "msa_convnext_block": [_VP] * 11 + [_I, _I, _I, _I, _I, _F, _I, _VP,
-                                        _VP, _I, _VP],
-    "msa_convnext_block_plan": [_I, _I, _I, _I, _I, _I,
-                                ctypes.POINTER(_I)],
+    "msa_convnext_block": [_VP] * 13 + [_I, _I, _I, _I, _I, _F, _I, _I,
+                                        _I, _I, _VP],
     "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
                                 _LL, _LL, _LL, _LL, _VP, _VP, _VP, _I, _I,
                                 _I, _I, _I, _I, _VP],
