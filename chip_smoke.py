@@ -10,13 +10,15 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit. No CUDA card: exit 2 at once.
 2. build: compile multimodal_sam_adapter_torch/csrc/*.cu with nvcc.
 3. kernels: K1-K6 at the flagship shapes (K5 at each of the four ConvNeXt
-   stages; K1 and K2 also at FMB's 800^2 and slide's batch-3 shapes, K5 at
-   the ragged FMB and test widths and at batch 3), each against its plain
-   PyTorch version in float32 and bfloat16 (tolerances in
-   kernel_checks.py), with CUDA-event times of kernel and plain and the
-   card's bound for the same work; for K1 and K2 the time of one SDPA call
+   stages; K1 and K2 also at FMB's 800^2 and slide's batch-3 shapes, K3
+   and K4 at FMB's, batch 3, `whole` mode's non-square 1024x1824 and
+   deliver_tiny's narrow widths, K5 at the ragged FMB and test widths and
+   at batch 3), each against its plain PyTorch version in float32 and
+   bfloat16 (tolerances in kernel_checks.py), with CUDA-event times of
+   kernel and plain and the card's bound for the same work; for K1 and K2 the time of one SDPA call
    on the same inputs (bf16), the yardstick; for K5 its ms per forward
-   (each stage's ms times its blocks).
+   (each stage's ms times its blocks). Each wrapper refuses a call that
+   autograd would record (an input that requires grad), launching nothing.
 4. forward: the full-width deliver_rgblidar EncoderDecoder (weights drawn
    from a seeded generator) on one 1024x1024x6 input in float32, kernel
    path against plain path, and the launch counts of that one forward.
@@ -137,6 +139,27 @@ def check_case(torch, kc, name, label, case, dtype, tag):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_guard(torch, kc, name):
+    """The wrapper raises, and launches nothing, on a call that autograd
+    would record: no kernel has a backward yet."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    fn, args = kc.flagship_case(name, torch.bfloat16, g,
+                                kc.flagship_shapes(name)[0])
+    args = list(args)
+    i = next(i for i, a in enumerate(args) if torch.is_tensor(a))
+    args[i] = args[i].detach().requires_grad_()
+    before = dict(kc.kernels.LAUNCHES)
+    try:
+        fn(*args)
+        raised = False
+    except RuntimeError as e:
+        raised = "no backward" in str(e)
+    torch.cuda.synchronize()
+    check(raised and kc.kernels.LAUNCHES == before,
+          f"{name}: a grad-recording call did not raise before launching")
+    line("kernels", name=name, grad_recording_call="refused")
+
+
 def check_library(torch, kc, name, case):
     """The yardstick: the fastest SDPA backend on the same inputs as the
     kernel's flagship case (its operands built outside the timed calls),
@@ -192,6 +215,7 @@ def phase_kernels(torch, kc):
                     f"{row[tag]['per_forward_ms']:.4f}"),
                      plain_per_forward_ms=(
                          f"{row[tag]['per_forward_plain_ms']:.4f}"))
+        check_guard(torch, kc, name)
         if attention:
             g = torch.Generator(device="cuda").manual_seed(SEED)
             row.update(check_library(

@@ -100,6 +100,15 @@ CONVNEXT_STAGES = ((256, 96), (128, 192), (64, 384), (32, 768))
 CONVNEXT_STAGE_CALLS = (6, 6, 54, 6)
 # K6: (c2 grid side, embed) at 1024^2
 PIXEL_SHUFFLE_FLAGSHIP = (128, EMBED)
+# K3 / K4 off the flagship shapes: FMB's 800^2 (a 50x50 grid), slide's
+# batch of 3 crops, `whole` mode's 1024x1824 (a 64x114 grid: a non-square
+# pyramid with an odd level, 128x228 / 64x114 / 32x57), and deliver_tiny's
+# widths (4 heads of D = 4, P = 2; a 4x4 grid, batch 2)
+MSDA_RAGGED = (("fmb", dict(grid=(50, 50))),
+               ("batch3", dict(batch=3)),
+               ("whole_1024x1824", dict(grid=(64, 114))),
+               ("tiny", dict(grid=(4, 4), batch=2, heads=4, points=2,
+                             value_width=16)))
 # ragged shapes: the FMB (800^2) stage widths that fill no tile, and the
 # narrow widths of the test configurations (atto trunk, embed 32)
 CONVNEXT_RAGGED = ((25, 768), (50, 384), (16, 40))
@@ -186,23 +195,36 @@ def flagship_case(name: str, dtype: torch.dtype, g: torch.Generator,
         return pixel_shuffle_case(*PIXEL_SHUFFLE_FLAGSHIP, dtype, g)
     if name in ("window_attention", "flash_attention"):
         return attention_case(name, dtype, g)
-    if name == "msda_multi_level":   # injector: ViT tokens <- pyramid
-        q_shapes, v_shapes = ((GRID, GRID),), PYRAMID
-    elif name == "msda_single_level":  # extractor: pyramid <- ViT tokens
-        q_shapes, v_shapes = PYRAMID, ((GRID, GRID),)
+    return msda_case(name, dtype, g)
+
+
+def msda_case(name: str, dtype: torch.dtype, g: torch.Generator,
+              grid: Tuple[int, int] = (GRID, GRID), batch: int = 1,
+              heads: int = DEF_HEADS, points: int = DEF_POINTS,
+              value_width: int = DEF_VALUE) -> Tuple[Callable, tuple]:
+    """K3 (the injector: the ViT's grid tokens sample the pyramid 2x / 1x /
+    0.5x the grid) or K4 (the extractor: the pyramid's tokens sample the
+    grid) for `batch` images, with the model's (1, Lq, L, 2) reference
+    points broadcast over the batch."""
+    H, W = grid
+    pyramid = ((2 * H, 2 * W), (H, W), (H // 2, W // 2))
+    if name == "msda_multi_level":
+        q_shapes, v_shapes = (grid,), pyramid
+    elif name == "msda_single_level":
+        q_shapes, v_shapes = pyramid, (grid,)
     else:
         raise KeyError(name)
     L = len(v_shapes)
     S = sum(h * w for h, w in v_shapes)
-    ref = torch.as_tensor(reference_points(q_shapes), device=dev)
+    ref = torch.as_tensor(reference_points(q_shapes), device=g.device)
     Lq = ref.shape[1]
     ref = ref.expand(1, Lq, L, 2).contiguous()
-    value = _randn((1, S, DEF_VALUE), g, dtype)
+    value = _randn((batch, S, value_width), g, dtype)
     # offsets of several level pixels: some samples land outside the grid
-    offs = _randn((1, Lq, DEF_HEADS * L * DEF_POINTS * 2), g, dtype, 8.0)
-    logits = _randn((1, Lq, DEF_HEADS * L * DEF_POINTS), g, dtype)
-    return ms_deform_attn, (value, v_shapes, ref, offs, logits, DEF_HEADS,
-                            DEF_POINTS)
+    offs = _randn((batch, Lq, heads * L * points * 2), g, dtype, 8.0)
+    logits = _randn((batch, Lq, heads * L * points), g, dtype)
+    return ms_deform_attn, (value, v_shapes, ref, offs, logits, heads,
+                            points)
 
 
 def _stage_label(shape) -> str:
@@ -212,10 +234,10 @@ def _stage_label(shape) -> str:
 def cases(name: str, dtype: torch.dtype, seed: int = 0):
     """Every case of one kernel: (label, on_main_path, (wrapper, args)).
     The flagship shapes (K5: its four stages) are on the main path; K1 and
-    K2 also run at `ATTENTION_RAGGED`, K5 at `CONVNEXT_RAGGED` and at its
-    first ragged shape with batch 3, writing into a guarded buffer
-    (`convnext_with_guard`). Each case draws from its own generator seeded
-    with `seed`."""
+    K2 also run at `ATTENTION_RAGGED`, K3 and K4 at `MSDA_RAGGED`, K5 at
+    `CONVNEXT_RAGGED` and at its first ragged shape with batch 3, writing
+    into a guarded buffer (`convnext_with_guard`). Each case draws from its
+    own generator seeded with `seed`."""
     def gen():
         return torch.Generator(device="cuda").manual_seed(seed)
 
@@ -225,6 +247,9 @@ def cases(name: str, dtype: torch.dtype, seed: int = 0):
     if name in ("window_attention", "flash_attention"):
         for label, kw in ATTENTION_RAGGED:
             yield label, False, attention_case(name, dtype, gen(), **kw)
+    if name in ("msda_multi_level", "msda_single_level"):
+        for label, kw in MSDA_RAGGED:
+            yield label, False, msda_case(name, dtype, gen(), **kw)
     if name == "convnext_block":
         ragged = [(s, 1) for s in CONVNEXT_RAGGED] + [(CONVNEXT_RAGGED[0], 3)]
         for shape, batch in ragged:
@@ -364,6 +389,18 @@ def work(name: str, args: tuple, out: torch.Tensor) -> Dict[str, float]:
                 other_ops=other_ops)
 
 
+def msda_gather_bytes(args: tuple) -> float:
+    """The value bytes K3/K4 gather on `args`: four corners of D values a
+    sample, each corner a row segment of its own, out-of-grid corners
+    included. At the flagship shapes the value tensor fits the 50 MB L2,
+    so these are L2 reads, a floor beside `bound_ms`'s unique bytes."""
+    value, shapes, _, offs, _, heads, points = args
+    B, Lq, _ = offs.shape
+    D = value.shape[-1] // heads
+    return float(B * Lq * heads * len(shapes) * points * 4 * D
+                 * value.element_size())
+
+
 def bound_ms(name: str, args: tuple, out: torch.Tensor
              ) -> Tuple[float, str]:
     """The least time the card could take for `work(name, args, out)`:
@@ -386,9 +423,9 @@ def bound_ms(name: str, args: tuple, out: torch.Tensor
 
 def kernel_us(fn: Callable, args: tuple, trace: "Path", calls: int = 10
               ) -> Dict[str, float]:
-    """Device microseconds per call of each kernel that `fn(*args)`
-    launches, by name, from a `torch.profiler` trace (written to
-    `trace`)."""
+    """Device microseconds per call of each kernel, copy and memset that
+    `fn(*args)` launches, by name, from a `torch.profiler` trace (written
+    to `trace`)."""
     import json
 
     fn(*args)
@@ -402,7 +439,8 @@ def kernel_us(fn: Callable, args: tuple, trace: "Path", calls: int = 10
     prof.export_chrome_trace(str(trace))
     us: Dict[str, float] = {}
     for e in json.loads(trace.read_text())["traceEvents"]:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
             name = e["name"].split("(")[0]
             us[name] = us.get(name, 0.0) + float(e.get("dur", 0.0)) / calls
     return us
@@ -461,6 +499,8 @@ def main(argv=None) -> None:
                     name=name, shape=label, dtype=tag,
                     max_abs_err=diff.nan_to_num(float("inf")).max().item(),
                     worst_err_over_tolerance=ratio)
+                if name.startswith("msda"):
+                    res["gather_mb"] = msda_gather_bytes(fargs) / 1e6
                 if args.time:
                     res["ms"] = time_ms(fn, fargs, iters=20)
                 if args.profile:

@@ -106,7 +106,8 @@ def convnext_block(x: torch.Tensor, dw: torch.Tensor, dw_b: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`out`: where to write the result (x's shape and dtype), else a new
     tensor."""
-    if kernels.use_kernel(x):
+    if kernels.use_kernel("convnext_block", x, dw, dw_b, ln_g, ln_b, w1,
+                          b1, w2, b2, gamma):
         return convnext_block_cuda(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2,
                                    gamma, eps, out)
     res = convnext_block_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2,

@@ -64,7 +64,8 @@ def rel_terms(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
 def flash_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                     rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
                     num_heads: int, scale: float) -> torch.Tensor:
-    if not kernels.use_kernel(qkv):
+    if not kernels.use_kernel("flash_attention", qkv, rel_pos_h,
+                              rel_pos_w):
         return flash_attention_plain(qkv, rel_pos_h, rel_pos_w, q_hw,
                                      num_heads, scale)
     H, W = q_hw

@@ -10,7 +10,9 @@ when this module is imported.
 
 Dispatch rule shared by every kernel wrapper (`use_kernel`):
 
-- a CUDA tensor goes through the kernel, or the call raises;
+- a CUDA tensor goes through the kernel, or the call raises; it raises
+  too when autograd would record the call (grad enabled and an input that
+  requires grad), since no kernel has a backward yet;
 - a CPU tensor goes through the kernel's plain PyTorch version;
 - inside `plain_kernels()` CUDA tensors take the plain version too. Only
   comparisons of a kernel against its plain version enter it.
@@ -64,8 +66,8 @@ _SIGNATURES = {
                             _VP],
     "msa_flash_attention_bf16": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _VP],
-    "msa_deform_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                        ctypes.POINTER(_I), _I, _VP],
+    "msa_deform_attn": [_VP] * 5 + [_I] * 7 + [ctypes.POINTER(_I)]
+                       + [_I] * 7 + [_VP],
     "msa_convnext_block": [_VP] * 13 + [_I, _I, _I, _I, _I, _F, _I, _I,
                                         _I, _I, _VP],
     "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
@@ -104,13 +106,29 @@ def plain_kernels():
         _state.force_plain = prev
 
 
-def use_kernel(x: torch.Tensor) -> bool:
-    """True: launch the CUDA kernel; False: run the plain version."""
+def on_kernel_device(x: torch.Tensor) -> bool:
+    """True: `x` goes to the CUDA kernel; False: to the plain version."""
     if x.device.type == "cuda":
         return not _state.force_plain
     if x.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel and no plain path for device {x.device}")
+
+
+def use_kernel(name: str, x: torch.Tensor, *inputs) -> bool:
+    """True: launch kernel `name` on `x` (and the other tensor `inputs`);
+    False: run the plain version. A kernel call that autograd would record
+    raises before anything launches: the kernels have no backward yet, and
+    their outputs would silently cut the graph."""
+    if not on_kernel_device(x):
+        return False
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (x, *inputs)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet, and an input "
+            "requires grad; call it under torch.no_grad() / "
+            "torch.inference_mode()")
+    return True
 
 
 def _nvcc() -> str:

@@ -26,7 +26,8 @@ def pixel_shuffle_up_bn(c2: torch.Tensor, weight: torch.Tensor,
     """c2 (B, C, H, W); weight (C, O, 2, 2), torch's ConvTranspose2d layout;
     c1, x1 (B, O, 2H, 2W); scale, shift (O,) float32. Returns
     (B, O, 2H, 2W) in c1's dtype."""
-    if kernels.use_kernel(c2):
+    if kernels.use_kernel("pixel_shuffle_up_bn", c2, weight, c1, x1, scale,
+                          shift):
         return pixel_shuffle_up_bn_cuda(c2, weight, c1, x1, scale, shift)
     return pixel_shuffle_up_bn_plain(c2, weight, c1, x1, scale, shift)
 

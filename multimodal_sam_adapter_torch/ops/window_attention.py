@@ -67,7 +67,8 @@ def _expansion_on(ws: int, keys: int, device: torch.device) -> torch.Tensor:
 def window_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                      rel_pos_w: torch.Tensor, ws: int, num_heads: int,
                      scale: float) -> torch.Tensor:
-    if not kernels.use_kernel(qkv):
+    if not kernels.use_kernel("window_attention", qkv, rel_pos_h,
+                              rel_pos_w):
         return window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws,
                                       num_heads, scale)
     if qkv.dtype == torch.bfloat16:

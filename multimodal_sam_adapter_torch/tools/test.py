@@ -7,9 +7,12 @@
         [--bf16 | --no-bf16] [--cfg-options k=v ...] [--device cuda|cpu]
         [--out-dir DIR]
 
-<checkpoint> is a torch state_dict file with the reference checkpoint's key
-names (loaded strictly), or `random` for weights drawn from a torch.Generator
-seeded with 0. The dataset is read and preprocessed by the
+<checkpoint> is a torch checkpoint file with the reference checkpoint's key
+names, loaded strictly: a bare state_dict, the reference's mmcv container
+(`state_dict`, `meta`, `optimizer`) or `{"model": ...}`, keys with or
+without DistributedDataParallel's `module.` prefix
+(`engine/checkpoint.py`); or `random` for weights drawn from a
+torch.Generator seeded with 0. The dataset is read and preprocessed by the
 port's `data/` (which reads images with OpenCV); the model runs on `--device`,
 `cuda` by default, which fails when there is no card. Writes
 eval_single_scale_<stamp>.json (eval_multi_scale_... with --aug-test) into
@@ -27,7 +30,8 @@ import time
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Test a segmentor (PyTorch)")
     p.add_argument("config")
-    p.add_argument("checkpoint", help="torch state_dict file, or 'random'")
+    p.add_argument("checkpoint",
+                   help="torch checkpoint (state_dict), or 'random'")
     p.add_argument("--data-root", required=True)
     p.add_argument("--eval", nargs="*", default=["mIoU"])
     p.add_argument("--aug-test", action="store_true",
@@ -58,6 +62,7 @@ def main(argv=None):
 
     from ..configs.registry import apply_overrides, get_config
     from ..data import TestPipeline, build_dataset
+    from ..engine.checkpoint import load_state_dict_file
     from ..engine.evaluator import Evaluator
     from ..engine.inference import InferenceEngine
     from ..models.segmentor import build_segmentor
@@ -82,8 +87,7 @@ def main(argv=None):
         gen = torch.Generator(device=device).manual_seed(0)
         model = build_segmentor(m, device, generator=gen)
     else:
-        sd = torch.load(args.checkpoint, map_location=device,
-                        weights_only=True)
+        sd = load_state_dict_file(args.checkpoint, device)
         model = build_segmentor(m, device, state_dict=sd)
     if args.bf16:
         model = model.to(torch.bfloat16)

@@ -48,7 +48,7 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # op family -> pattern on the kernel name; the first match wins
 FAMILIES: Tuple[Tuple[str, str], ...] = (
     ("K1/K2 attention", r"rel_pos_attention"),
-    ("K3/K4 msda", r"msda_kernel"),
+    ("K3/K4 msda", r"msda_\w*kernel"),
     ("K5 convnext block", r"convnext_block"),
     ("K6 f1 assembly", r"pixel_shuffle"),
     ("plain grid_sample", r"grid_sampler"),

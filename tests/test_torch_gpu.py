@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from kernel_checks import (
-    ATTENTION_RAGGED, CONVNEXT_RAGGED, KERNELS, PIXEL_SHUFFLE_RAGGED,
-    TOLERANCES, attention_case, convnext_case, flagship_case,
-    flagship_shapes, pixel_shuffle_case, plain_reference)
+    ATTENTION_RAGGED, CONVNEXT_RAGGED, KERNELS, MSDA_RAGGED,
+    PIXEL_SHUFFLE_RAGGED, TOLERANCES, attention_case, convnext_case,
+    flagship_case, flagship_shapes, msda_case, pixel_shuffle_case,
+    plain_reference)
 from multimodal_sam_adapter_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -83,6 +84,61 @@ def test_attention_kernels_at_fmb_and_batch3_shapes(name, label, kw, dtype):
     g = torch.Generator(device=dev).manual_seed(3)
     fn, args = attention_case(name, DTYPES[dtype], g, **kw)
     _check_launch(name, fn, args, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("label,kw", MSDA_RAGGED,
+                         ids=[label for label, _ in MSDA_RAGGED])
+@pytest.mark.parametrize("name", ["msda_multi_level", "msda_single_level"])
+def test_msda_at_fmb_batch3_nonsquare_and_tiny_shapes(name, label, kw,
+                                                      dtype):
+    """K3 and K4 at FMB's 800^2 (a 50x50 grid), at slide's batch of 3
+    crops (the reference points of one image broadcast), at `whole` mode's
+    1024x1824 (a 64x114 grid, levels 128x228 / 64x114 / 32x57) and at
+    deliver_tiny's widths (D = 4, P = 2: 8-byte loads)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    fn, args = msda_case(name, DTYPES[dtype], g, **kw)
+    _check_launch(name, fn, args, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shift", [1, 2])
+def test_msda_on_a_misaligned_value(shift, dtype):
+    """The value tensor a whole number of values past a 16-byte boundary:
+    the plan narrows the loads to what the address allows."""
+    dev = _card()
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(5)
+    fn, args = msda_case("msda_multi_level", dt, g, grid=(8, 10))
+    value = args[0]
+    buf = torch.empty(value.numel() + shift, dtype=dt, device=dev)
+    moved = buf[shift:].view(value.shape)
+    moved.copy_(value)
+    args = (moved,) + args[1:]
+    _check_launch("msda_multi_level", fn, args, dt)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernels_refuse_a_call_autograd_would_record(name):
+    """With grad enabled and an input that requires grad, each wrapper
+    raises before it launches; under no_grad the same call launches."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    fn, args = flagship_case(name, torch.bfloat16, g,
+                             flagship_shapes(name)[0])
+    args = list(args)
+    i = next(i for i, a in enumerate(args) if torch.is_tensor(a))
+    args[i] = args[i].detach().requires_grad_()
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before[name] + 1
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
