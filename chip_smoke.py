@@ -13,11 +13,15 @@ Phases, one line each; any failure exits non-zero before the last line:
    stages; K1 and K2 also at FMB's 800^2 and slide's batch-3 shapes, K3
    and K4 at FMB's, batch 3, `whole` mode's non-square 1024x1824 and
    deliver_tiny's narrow widths, K5 at the ragged FMB and test widths and
-   at batch 3), each against its plain PyTorch version in float32 and
-   bfloat16 (tolerances in kernel_checks.py), with CUDA-event times of
-   kernel and plain and the card's bound for the same work; for K1 and K2 the time of one SDPA call
+   at batch 3, K6 at FMB's 100x100 grid, batch 3, `whole` mode's 128x228
+   grid, the other c1 / x1 layout pairs and the test widths), each against
+   its plain PyTorch version in float32 and bfloat16 (tolerances in
+   kernel_checks.py), with CUDA-event times of kernel and plain and the
+   card's bound for the same work; for K1 and K2 the time of one SDPA call
    on the same inputs (bf16), the yardstick; for K5 its ms per forward
-   (each stage's ms times its blocks). Each wrapper refuses a call that
+   (each stage's ms times its blocks); for K6 the time of cuDNN's
+   conv_transpose2d on its c2 and weight (`product_ms`: the product alone,
+   a yardstick, not the same function). Each wrapper refuses a call that
    autograd would record (an input that requires grad), launching nothing.
 4. forward: the full-width deliver_rgblidar EncoderDecoder (weights drawn
    from a seeded generator) on one 1024x1024x6 input in float32, kernel
@@ -25,6 +29,8 @@ Phases, one line each; any failure exits non-zero before the last line:
 5. serve: the model in bfloat16 answers 3 requests through
    InferenceEngine.predict ('whole_dim'); the launch counts of those
    requests, ms per image of the kernel and the plain path, peak memory.
+   Phases 4, 5, 7 and 8 also print the shapes, strides and dtypes of K6's
+   operands (c2, c1, x1) as the backbone hands them over.
 6. eval: the bf16 model through the Evaluator over 4 in-memory DELIVER
    samples (labels with ignored pixels, two cases): mIoU on the kernel and
    the plain path, ms per image, launch counts, the condition x case report.
@@ -178,6 +184,49 @@ def check_library(torch, kc, name, case):
                 library_max_abs_err=err)
 
 
+def check_product(kc, case):
+    """K6's yardstick: cuDNN's conv_transpose2d on K6's flagship c2 and
+    weight (bf16), the product and depth-to-space alone."""
+    fn, args = kc.product_case(case[1])
+    ms = kc.time_ms(fn, args)
+    line("kernels", name="pixel_shuffle_up_bn", product="conv_transpose2d",
+         product_ms=f"{ms:.4f}")
+    return dict(product_ms=ms)
+
+
+class K6Operands:
+    """Records the layouts of K6's operands (c2, c1, x1) as the backbone
+    hands them over, by wrapping the backbone's reference to the wrapper
+    (which still counts its launches)."""
+
+    def __init__(self):
+        import multimodal_sam_adapter_torch.models.backbone as backbone
+        self.module, self.seen = backbone, []
+
+    def __enter__(self):
+        real = self.real = self.module.pixel_shuffle_up_bn
+
+        def record(c2, weight, c1, x1, scale, shift):
+            self.seen.append({name: dict(
+                shape=list(t.shape), strides=list(t.stride()),
+                dtype=str(t.dtype).replace("torch.", ""))
+                for name, t in (("c2", c2), ("c1", c1), ("x1", x1))})
+            return real(c2, weight, c1, x1, scale, shift)
+
+        self.module.pixel_shuffle_up_bn = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.pixel_shuffle_up_bn = self.real
+
+    def report(self, phase):
+        first = self.seen[0] if self.seen else None
+        line("kernels", name="pixel_shuffle_up_bn", in_phase=phase,
+             calls=len(self.seen), operands=compact(first))
+        check(all(s == first for s in self.seen),
+              f"{phase}: K6's operand layouts vary between calls")
+
+
 def phase_kernels(torch, kc):
     """One row per kernel; K5's row sums its four stage shapes (one block
     at each stage), keeps them under `shapes` and weighs them by the
@@ -216,22 +265,26 @@ def phase_kernels(torch, kc):
                      plain_per_forward_ms=(
                          f"{row[tag]['per_forward_plain_ms']:.4f}"))
         check_guard(torch, kc, name)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
         if attention:
-            g = torch.Generator(device="cuda").manual_seed(SEED)
             row.update(check_library(
                 torch, kc, name, kc.flagship_case(name, torch.bfloat16, g)))
+        if name == "pixel_shuffle_up_bn":
+            row.update(check_product(
+                kc, kc.flagship_case(name, torch.bfloat16, g)))
         rows.append(row)
     return rows
 
 
 def phase_forward(torch, kernels, model, x):
-    kernels.reset_launches()
-    with torch.no_grad():
+    with torch.no_grad(), K6Operands() as k6:
+        kernels.reset_launches()
         got = model(x)
         torch.cuda.synchronize()
         counts = dict(kernels.LAUNCHES)
         with kernels.plain_kernels():
             want = model(x)
+    k6.report("forward")
     check(got.shape == (1, 1024, 1024, 25), f"logits shape {got.shape}")
     check(torch.isfinite(got).all().item(), "non-finite float32 logits")
     err = (got - want).abs().max().item()
@@ -262,9 +315,11 @@ def phase_serve(torch, kernels, engine, imgs):
         return times, preds
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    k_times, preds = serve(plain=False)      # the main path
-    counts = dict(kernels.LAUNCHES)
+    with K6Operands() as k6:
+        kernels.reset_launches()
+        k_times, preds = serve(plain=False)      # the main path
+        counts = dict(kernels.LAUNCHES)
+    k6.report("serve")
     peak_kernel = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     p_times, p_preds = serve(plain=True)
@@ -379,9 +434,9 @@ def _build_bf16(torch, build_segmentor, model_cfg, g):
     return build_segmentor(model_cfg, "cuda", generator=g).to(torch.bfloat16)
 
 
-def predict_paths(kernels, predict):
-    """The main path once (its launch counts), the plain path once, then
-    each again for its warm time. Returns (class map, plain class map,
+def predict_paths(kernels, predict, phase):
+    """The main path once (its launch counts, K6's operands), the plain
+    path once, then each again for its warm time. Returns (class map, plain class map,
     launch counts, first ms, ms, plain ms)."""
     def timed(plain):
         t0 = time.perf_counter()
@@ -392,9 +447,11 @@ def predict_paths(kernels, predict):
             out = predict()
         return out, (time.perf_counter() - t0) * 1e3   # out is on the host
 
-    kernels.reset_launches()
-    pred, first_ms = timed(plain=False)       # the main path
-    counts = dict(kernels.LAUNCHES)
+    with K6Operands() as k6:
+        kernels.reset_launches()
+        pred, first_ms = timed(plain=False)       # the main path
+        counts = dict(kernels.LAUNCHES)
+    k6.report(phase)
     p_pred, _ = timed(plain=True)
     _, ms = timed(plain=False)
     _, p_ms = timed(plain=True)
@@ -413,7 +470,7 @@ def phase_slide(torch, kernels, engine, pad_for_model, rng):
         lambda m, a: batches.append(tuple(a[0].shape)))
     try:
         pred, p_pred, counts, first_ms, ms, p_ms = predict_paths(
-            kernels, lambda: engine.predict(x, valid_hw=valid))
+            kernels, lambda: engine.predict(x, valid_hw=valid), "slide")
     finally:
         hook.remove()
     agree = agreement(pred, p_pred)
@@ -440,7 +497,7 @@ def phase_cut(torch, kernels, engine, block_cls, rng):
         for m in engine.model.modules() if isinstance(m, block_cls)]
     try:
         pred, p_pred, counts, first_ms, ms, p_ms = predict_paths(
-            kernels, lambda: engine.predict(x))
+            kernels, lambda: engine.predict(x), "cut")
     finally:
         for h in hooks:
             h.remove()
@@ -510,6 +567,8 @@ def main():
         f32, bf = row.pop("f32"), row.pop("bf16")
         extra = {k: bf[k] for k in ("per_forward_ms", "per_forward_plain_ms")
                  if k in bf}
+        if "product_ms" in row:   # K6's yardstick: a key of its own
+            extra["product_ms"] = row.pop("product_ms")
         out.append(dict(row, launches=counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],

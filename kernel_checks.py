@@ -6,7 +6,9 @@ kernel's public wrapper: as is it launches the kernel, inside
 `kernels.plain_kernels()` it runs the plain version on the same inputs.
 Beside each case: the least time the card could take for the same work
 (`bound_ms`) and, for the attention kernels, one PyTorch call that computes
-the same function (`library_case`), timed as a yardstick only.
+the same function (`library_case`), timed as a yardstick only. K6 has no
+such call; cuDNN's `conv_transpose2d` computes its product alone
+(`product_case`), timed beside it as `product_ms`.
 """
 from __future__ import annotations
 
@@ -112,7 +114,20 @@ MSDA_RAGGED = (("fmb", dict(grid=(50, 50))),
 # ragged shapes: the FMB (800^2) stage widths that fill no tile, and the
 # narrow widths of the test configurations (atto trunk, embed 32)
 CONVNEXT_RAGGED = ((25, 768), (50, 384), (16, 40))
-PIXEL_SHUFFLE_RAGGED = ((100, EMBED), (8, 32))
+# K6 off the flagship shapes, c1 and x1 NCHW unless named (as the flagship
+# and FMB forwards hand them over): FMB's 800^2 (a 100x100 c2 grid: a
+# ragged row tile), slide's batch of 3 crops (x1 channels-last, as slide's
+# forward has it), `whole` mode's 1024x1824 (a 128x228 grid), the two other
+# layout pairs, and the test configurations' embed 32 on an 8x8 grid at
+# batch 2 (x1 channels-last, as there)
+PIXEL_SHUFFLE_RAGGED = (("fmb", dict(grid=(100, 100))),
+                        ("batch3", dict(batch=3, x1_layout="channels_last")),
+                        ("whole_128x228", dict(grid=(128, 228))),
+                        ("swapped_layouts", dict(c1_layout="channels_last")),
+                        ("channels_last", dict(c1_layout="channels_last",
+                                               x1_layout="channels_last")),
+                        ("tiny", dict(grid=(8, 8), E=32, batch=2,
+                                      x1_layout="channels_last")))
 # K1 / K2 at the other test modes' shapes: FMB's 800^2 is a 50x50 token
 # grid (padded to 56 for the windows: 16 of them; the global grid's
 # 127-row pretrained tables resized to 99 rows), slide runs 3 crops a
@@ -162,20 +177,47 @@ def convnext_with_guard(x, *params):
     return buf
 
 
-def pixel_shuffle_case(hw: int, E: int, dtype: torch.dtype,
-                       g: torch.Generator, batch: int = 1
+def pixel_shuffle_case(grid, E: int, dtype: torch.dtype,
+                       g: torch.Generator, batch: int = 1,
+                       c1_layout: str = "nchw", x1_layout: str = "nchw"
                        ) -> Tuple[Callable, tuple]:
-    """K6 with the operands in the backbone's layouts: c2 a view of the
-    (batch, hw*hw, E) token stream, c1 an NCHW map, x1 channels-last (as
-    the bilinear resize of a token-grid view returns it)."""
-    c2 = _randn((batch, hw * hw, E), g, dtype).transpose(1, 2).reshape(
-        batch, E, hw, hw)
-    c1 = _randn((batch, E, 2 * hw, 2 * hw), g, dtype)
-    x1 = _randn((batch, 2 * hw, 2 * hw, E), g, dtype).permute(0, 3, 1, 2)
+    """K6 on an h x w c2 grid (`grid`: (h, w) or a side) of E channels,
+    with the operands in the backbone's layouts: c2 a view of the adapter's
+    (batch, tokens, E) stream, whose c3 and c4 tokens follow c2's (so the
+    batch stride is not h w E); c1 and x1 NCHW or channels-last maps. The
+    flagship bf16 forward on the card hands over both NCHW; slide's batch
+    of 3 has x1 channels-last (the bilinear resize of a token-grid view)."""
+    h, w = (grid, grid) if isinstance(grid, int) else grid
+    tokens = h * w + (h // 2) * (w // 2) + (h // 4) * (w // 4)
+    c2 = _randn((batch, tokens, E), g, dtype)[:, :h * w].transpose(
+        1, 2).reshape(batch, E, h, w)
+
+    def output_map(layout):
+        if layout == "nchw":
+            return _randn((batch, E, 2 * h, 2 * w), g, dtype)
+        if layout == "channels_last":
+            return _randn((batch, 2 * h, 2 * w, E), g, dtype).permute(
+                0, 3, 1, 2)
+        raise ValueError(layout)
+
+    c1 = output_map(c1_layout)
+    x1 = output_map(x1_layout)
     weight = _randn((E, E, 2, 2), g, dtype, E ** -0.5)
     scale = 1 + _randn((E,), g, torch.float32, 0.05)
     shift = _randn((E,), g, torch.float32, 0.05)
     return pixel_shuffle_up_bn, (c2, weight, c1, x1, scale, shift)
+
+
+def product_case(args: tuple) -> Tuple[Callable, tuple]:
+    """The part of K6's work that is a GEMM, as one cuDNN call on K6's own
+    c2 and weight: the transposed conv (product and depth-to-space),
+    without c1, x1 or the affine. Not the same function as K6, so a
+    yardstick of the product only, never a `library_ms`."""
+    return _conv_transpose_2x2, args[:2]
+
+
+def _conv_transpose_2x2(c2, weight):
+    return F.conv_transpose2d(c2, weight, stride=2)
 
 
 def flagship_shapes(name: str) -> tuple:
@@ -236,8 +278,9 @@ def cases(name: str, dtype: torch.dtype, seed: int = 0):
     The flagship shapes (K5: its four stages) are on the main path; K1 and
     K2 also run at `ATTENTION_RAGGED`, K3 and K4 at `MSDA_RAGGED`, K5 at
     `CONVNEXT_RAGGED` and at its first ragged shape with batch 3, writing
-    into a guarded buffer (`convnext_with_guard`). Each case draws from its
-    own generator seeded with `seed`."""
+    into a guarded buffer (`convnext_with_guard`), K6 at
+    `PIXEL_SHUFFLE_RAGGED`. Each case draws from its own generator seeded
+    with `seed`."""
     def gen():
         return torch.Generator(device="cuda").manual_seed(seed)
 
@@ -250,6 +293,12 @@ def cases(name: str, dtype: torch.dtype, seed: int = 0):
     if name in ("msda_multi_level", "msda_single_level"):
         for label, kw in MSDA_RAGGED:
             yield label, False, msda_case(name, dtype, gen(), **kw)
+    if name == "pixel_shuffle_up_bn":
+        for label, kw in PIXEL_SHUFFLE_RAGGED:
+            kw = dict(kw)
+            yield label, False, pixel_shuffle_case(
+                kw.pop("grid", PIXEL_SHUFFLE_FLAGSHIP[0]),
+                kw.pop("E", EMBED), dtype, gen(), **kw)
     if name == "convnext_block":
         ragged = [(s, 1) for s in CONVNEXT_RAGGED] + [(CONVNEXT_RAGGED[0], 3)]
         for shape, batch in ragged:
@@ -468,7 +517,8 @@ def main(argv=None) -> None:
     ap.add_argument("--shapes", nargs="+",
                     help="only the cases of these labels (e.g. 64x64x384)")
     ap.add_argument("--time", action="store_true",
-                    help="also time each case (CUDA events, 20 calls)")
+                    help="also time each case (CUDA events, 20 calls; K6: "
+                         "and its product alone in cuDNN, `product_ms`)")
     ap.add_argument("--profile", action="store_true",
                     help="also give each case's device us per kernel name "
                          "(torch.profiler; traces under build/profiles/)")
@@ -503,6 +553,9 @@ def main(argv=None) -> None:
                     res["gather_mb"] = msda_gather_bytes(fargs) / 1e6
                 if args.time:
                     res["ms"] = time_ms(fn, fargs, iters=20)
+                    if name == "pixel_shuffle_up_bn":
+                        res["product_ms"] = time_ms(*product_case(fargs),
+                                                    iters=20)
                 if args.profile:
                     res["kernel_us"] = kernel_us(
                         fn, fargs, Path(__file__).resolve().parent / "build"

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 wgmma kernels (the attention
-// core of K1/K2, K5's two GEMMs): mbarriers, TMA tensor loads and the host
-// side's tensor maps, wgmma shared-memory descriptors and the wgmma
-// products themselves (PTX ISA 8.x: "mbarrier", "cp.async.bulk.tensor",
-// "Asynchronous Warpgroup Level Matrix Multiply-Accumulate").
+// core of K1/K2, K5's two GEMMs, K6's GEMM): mbarriers, TMA tensor loads
+// and stores and the host side's tensor maps, wgmma shared-memory
+// descriptors and the wgmma products themselves (PTX ISA 8.x:
+// "mbarrier", "cp.async.bulk.tensor", "Asynchronous Warpgroup Level Matrix
+// Multiply-Accumulate").
 //
 // Operand layouts (CUTLASS's canonical GMMA layouts, in 16-byte units T of
 // 8 bf16 values): a tile of R rows of D bf16 values, rows 2D bytes apart,
@@ -14,7 +15,8 @@
 //   - MN-major (the output dimension contiguous, as V is for O += P V):
 //     D values per row, one swizzle atom wide; 8-row groups along the
 //     reduction SBO = 16 * D bytes apart; a k16 step moves the start by 16
-//     rows.
+//     rows. A wider MN-major operand (K6's weight, 128 columns) is several
+//     such slabs of 64 columns, LBO bytes apart (`make_desc_mn`).
 // Every tile starts on a 1024-byte boundary, so the descriptors' base
 // offset is 0.
 #pragma once
@@ -99,6 +101,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- TMA stores (bulk groups of the issuing thread)
 
 // make this thread's shared-memory writes visible to the TMA unit
@@ -113,6 +126,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -175,6 +198,16 @@ __device__ __forceinline__ uint64_t make_desc(const void* tile) {
          (uint64_t((16 * D) >> 4) << 32) | (Swizzle<D>::kDesc << 62);
 }
 
+// descriptor of an MN-major operand tile with the 128-byte swizzle: slabs
+// of 64 MN values (one swizzle atom wide) and 8 * k rows each, `lbo` bytes
+// apart along MN; 8-row groups along the reduction 1024 bytes apart
+__device__ __forceinline__ uint64_t make_desc_mn(const void* tile,
+                                                 uint32_t lbo) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (Swizzle<64>::kDesc << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -203,12 +236,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // d (64 x N, float32, accumulator layout) (+)= A (64 x 16) B (16 x N):
-// WgmmaSS takes A and B from K-major shared-memory tiles, WgmmaRS takes A
-// from registers (the accumulator layout of a previous product packed to
-// bf16 pairs) and B from shared memory, K-major (kTransB = 0) or MN-major
-// (kTransB = 1, the transpose bit). scale_d == 0 overwrites d.
+// WgmmaSS takes A and B from K-major shared-memory tiles, WgmmaSSTransB A
+// from a K-major and B from an MN-major tile (the transpose bit), WgmmaRS
+// takes A from registers (the accumulator layout of a previous product
+// packed to bf16 pairs) and B from shared memory, K-major (kTransB = 0) or
+// MN-major (kTransB = 1). scale_d == 0 overwrites d.
 template <int N>
 struct WgmmaSS;
+template <int N>
+struct WgmmaSSTransB;
 template <int N, int kTransB>
 struct WgmmaRS;
 
@@ -291,6 +327,38 @@ struct WgmmaSS<128> {
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
         "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSSTransB<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -528,20 +596,28 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dims (innermost first), box `box`, swizzled at
-// the box's row width; out-of-bounds elements read as zeros
+// a bf16 tensor of `rank` (<= 5) dims (innermost first), byte strides of
+// the outer dims, box `box`, with the given swizzle; out-of-bounds elements
+// read as zeros, and stores past the bounds are dropped
+inline bool encode_map(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same, swizzled at the width of a row of D bf16 values
 template <int D>
 inline bool encode_map(CUtensorMap* map, const void* base, int rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
                        const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<D>::kTma,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, base, rank, dims, strides, box, Swizzle<D>::kTma);
 }
 
 }  // namespace msa

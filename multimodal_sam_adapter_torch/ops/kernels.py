@@ -41,7 +41,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 )
-# the wgmma kernels (K1, K2, K5) find cuTensorMapEncodeTiled with
+# the wgmma kernels (K1, K2, K5, K6) find cuTensorMapEncodeTiled with
 # dlopen/dlsym
 LINK_FLAGS = ("-ldl",)
 
@@ -71,8 +71,8 @@ _SIGNATURES = {
     "msa_convnext_block": [_VP] * 13 + [_I, _I, _I, _I, _I, _F, _I, _I,
                                         _I, _I, _VP],
     "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
-                                _LL, _LL, _LL, _LL, _VP, _VP, _VP, _I, _I,
-                                _I, _I, _I, _I, _VP],
+                                _LL, _LL, _LL, _LL, _VP, _VP, _VP]
+                               + [_I] * 12 + [_VP],
 }
 
 

@@ -54,22 +54,51 @@ def test_kernel_matches_plain_at_flagship_shapes(name, shape, dtype):
     _check_launch(name, fn, args, DTYPES[dtype])
 
 
+def _ragged_params():
+    for shape in CONVNEXT_RAGGED:
+        yield "convnext_block", "x".join(map(str, shape)), dict(
+            hw=shape[0], C=shape[1])
+    yield "convnext_block", "batch3", dict(hw=CONVNEXT_RAGGED[0][0],
+                                           C=CONVNEXT_RAGGED[0][1], batch=3)
+    for label, kw in PIXEL_SHUFFLE_RAGGED:
+        yield "pixel_shuffle_up_bn", label, kw
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("name,shape,batch", [
-    *(("convnext_block", s, 1) for s in CONVNEXT_RAGGED),
-    ("convnext_block", CONVNEXT_RAGGED[0], 3),
-    *(("pixel_shuffle_up_bn", s, 1) for s in PIXEL_SHUFFLE_RAGGED),
-    ("pixel_shuffle_up_bn", PIXEL_SHUFFLE_RAGGED[-1], 3)])
-def test_convnext_and_pixel_shuffle_at_ragged_shapes(name, shape, batch,
+@pytest.mark.parametrize("name,label,kw", list(_ragged_params()),
+                         ids=[f"{n}-{lb}" for n, lb, _ in _ragged_params()])
+def test_convnext_and_pixel_shuffle_at_ragged_shapes(name, label, kw,
                                                      dtype):
     """The FMB (800^2) widths that fill no tile (K5 at 25x25x768 and
     50x50x384, K6 from a 100x100 grid), the narrow test widths (atto
-    C = 40, embed 32), and batch 3 (slide mode's window batch)."""
+    C = 40, embed 32), batch 3 (slide mode's window batch), and for K6
+    `whole` mode's 128x228 grid and c1 / x1 in each other's layout."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
-    case = convnext_case if name == "convnext_block" else pixel_shuffle_case
-    fn, args = case(*shape, DTYPES[dtype], g, batch=batch)
+    kw = dict(kw)
+    if name == "convnext_block":
+        fn, args = convnext_case(kw.pop("hw"), kw.pop("C"), DTYPES[dtype], g,
+                                 **kw)
+    else:
+        fn, args = pixel_shuffle_case(kw.pop("grid", 128), kw.pop("E", 1024),
+                                      DTYPES[dtype], g, **kw)
     _check_launch(name, fn, args, DTYPES[dtype])
+
+
+def test_pixel_shuffle_refuses_operands_tma_cannot_take():
+    """bf16 K6 takes c1 and x1 NCHW or channels-last with 16-byte strides
+    and raises, launching nothing, on anything else."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    fn, (c2, w, c1, x1, sc, sh) = pixel_shuffle_case(8, 32, torch.bfloat16, g)
+    before = kernels.LAUNCHES["pixel_shuffle_up_bn"]
+    hw_swapped = c1.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="NCHW or channels-last"):
+        fn(c2, w, hw_swapped, x1, sc, sh)
+    shifted = torch.empty(c1.numel() + 1, dtype=c1.dtype, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        fn(c2, w, c1, shifted.view(c1.shape), sc, sh)
+    assert kernels.LAUNCHES["pixel_shuffle_up_bn"] == before
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

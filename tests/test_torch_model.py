@@ -92,6 +92,25 @@ def test_inference_engine_whole_dim_matches_jax(tiny):
         InferenceEngine(model, dict(mode="sliding"))
 
 
+def test_three_modalities_match_jax():
+    """muses_rgbeventlidar's geometry: modalities_ch (3, 3, 3), so the twin
+    ConvNeXt's aux branch takes a 6-channel (event + LiDAR) stem. The tiny
+    backbone on a 9-channel input, one checkpoint through the weight
+    bridge into both packages."""
+    bcfg = dict(TINY_BACKBONE, modalities_ch=(3, 3, 3))
+    sd = _checkpoint(cfg=bcfg)
+    stem = "backbone.spm.twin_conv.downsample_layers_y.0.0.weight"
+    rng = np.random.default_rng(9)
+    sd[stem] = (rng.standard_normal((sd[stem].shape[0], 6, 4, 4)) * 0.05
+                ).astype(np.float32)
+    x = (rng.standard_normal((2, IMG, IMG, 9)) * 0.5).astype(np.float32)
+    got, want, model = _both(sd, bcfg, HEAD_CH, NCLS, x)
+    assert model.backbone.spm.twin_conv.downsample_layers_y[0][0] \
+        .weight.shape[1] == 6
+    assert got.shape == want.shape == (2, IMG, IMG, NCLS)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_bridge_round_trip_gives_back_the_checkpoint():
     """synth_state_dict -> convert_full_checkpoint -> state_dict_from_jax
     returns the same keys and values (plus num_batches_tracked), and the
