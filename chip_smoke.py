@@ -21,8 +21,13 @@ Phases, one line each; any failure exits non-zero before the last line:
    on the same inputs (bf16), the yardstick; for K5 its ms per forward
    (each stage's ms times its blocks); for K6 the time of cuDNN's
    conv_transpose2d on its c2 and weight (`product_ms`: the product alone,
-   a yardstick, not the same function). Each wrapper refuses a call that
-   autograd would record (an input that requires grad), launching nothing.
+   a yardstick, not the same function). K5's delta-only mode (training's:
+   no shortcut added) at the four stage shapes, batch 3, against the plain
+   delta, its ms beside the eval mode's. A grad-recording call of K1-K5 goes through the kernel's
+   autograd Function: it returns the kernel's own output, and its
+   gradients equal the plain version's autodiff (K2: the banded backward
+   against the unbanded one at N = 4096; K5 in its delta-only mode), in
+   float32 and bf16; K6 refuses such a call, launching nothing.
 4. forward: the full-width deliver_rgblidar EncoderDecoder (weights drawn
    from a seeded generator) on one 1024x1024x6 input in float32, kernel
    path against plain path, and the launch counts of that one forward.
@@ -40,15 +45,32 @@ Phases, one line each; any failure exits non-zero before the last line:
 8. cut: fmb_rgbtherm (800^2, 14 classes) in bf16 on one 800x800 input
    ('whole_dim_cut'): the (600, 800) class map against the plain path's,
    and K5 at the 25x25 stage.
+9. train: the full-width deliver_rgblidar train step (engine/train.py:
+   init_train_state, make_train_step; weights from the seed, with_cp on,
+   drop path 0.3 / 0.4 and dropout 0.1 on, 1024^2, B=1, OHEM loss). One
+   micro-step through the kernels against one through the plain versions
+   on the same weights, batch and masks: in float32 the loss within 1e-3
+   relative and all gradients within 1e-2 relative L2; in bf16 autocast
+   the loss within 1e-2 and the gradients' cosine similarity >= 0.98 over
+   all and >= 0.95 for each watched tensor. Then two optimizer updates of
+   grad_accum 4 micro-batches each in bf16: finite losses, every
+   parameter changed, the BatchNorm running statistics moved, K1-K5
+   launched twice their forward counts a micro-step (the forward and the
+   recompute of its checkpointed region) and K6 never; the micro-step's
+   ms (CUDA events) and peak memory beside the card's name and power
+   limit, and one micro-step's device busy ms and idle share
+   (utils/profiling.py; trace under build/profiles/).
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -69,6 +91,33 @@ EVAL_SAMPLES = 4
 FORWARD_RTOL_OF_MAX = 1e-3
 # phases 5-8: bf16 class maps of the kernel path against the plain path
 AGREE_MIN = 0.98
+# phase 9: launches of one train micro-step with with_cp: each kernel of the
+# forward once more in its checkpointed region's recompute; K6 serves eval
+# only (f1 is the plain composition with batch statistics in training)
+PER_MICRO_STEP = dict({k: 2 * v for k, v in PER_FORWARD.items()},
+                      pixel_shuffle_up_bn=0)
+TRAIN_MICRO_STEPS = 8          # two updates of grad_accum 4
+# kernel path against plain path on one micro-step: float32 differs in
+# summation order only; bf16 in where each path rounds to bf16
+TRAIN_LOSS_RTOL = {"f32": 1e-3, "bf16": 1e-2}
+TRAIN_GRAD_REL_F32 = 1e-2
+TRAIN_COS_ALL, TRAIN_COS_EACH = 0.98, 0.95
+# where bf16 autocast itself takes a watched gradient below TRAIN_COS_EACH
+# of the float32 one (the plain path too), the kernel path's cosine to the
+# float32 gradient may trail the plain path's by at most this
+TRAIN_COS_SLACK = 0.02
+# bf16: the gradients held one by one, where each kernel's backward lands
+TRAIN_WATCHED = (
+    "backbone.blocks.0.attn.qkv.weight",          # K1's block
+    "backbone.blocks.0.attn.rel_pos_h",
+    "backbone.blocks.5.attn.qkv.weight",          # K2's block
+    "backbone.blocks.5.attn.rel_pos_h",
+    "backbone.interactions.0.injector.attn.sampling_offsets.weight",  # K3
+    "backbone.interactions.0.injector.attn.attention_weights.weight",
+    "backbone.interactions.0.extractor.attn.sampling_offsets.weight",  # K4
+    "backbone.interactions.0.extractor.attn.attention_weights.weight",
+    "backbone.spm.twin_conv.stages_x.2.0.pointwise_conv1.weight",      # K5
+)
 
 class PhaseError(RuntimeError):
     pass
@@ -99,8 +148,9 @@ def phase_device(torch):
         capture_output=True, text=True, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
     line("device", name=repr(kind), count=torch.cuda.device_count())
-    print(smi.splitlines()[0], flush=True)
-    return kind
+    smi = smi.splitlines()[0]
+    print(smi, flush=True)
+    return kind, smi
 
 
 def phase_build(kernels):
@@ -145,25 +195,74 @@ def check_case(torch, kc, name, label, case, dtype, tag):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_guard(torch, kc, name):
-    """The wrapper raises, and launches nothing, on a call that autograd
-    would record: no kernel has a backward yet."""
+def check_autograd(torch, kc, name):
+    """A call that autograd would record. K6 (eval only, no backward)
+    raises and launches nothing. K1-K5 go through their Function: the
+    kernel's own output, and gradients equal to the plain version's
+    autodiff (K2: banded against unbanded at N = 4096; K5 in its
+    delta-only mode), float32 and bf16, at the first flagship shape."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    fn, args = kc.flagship_case(name, torch.bfloat16, g,
-                                kc.flagship_shapes(name)[0])
-    args = list(args)
-    i = next(i for i, a in enumerate(args) if torch.is_tensor(a))
-    args[i] = args[i].detach().requires_grad_()
-    before = dict(kc.kernels.LAUNCHES)
-    try:
-        fn(*args)
-        raised = False
-    except RuntimeError as e:
-        raised = "no backward" in str(e)
-    torch.cuda.synchronize()
-    check(raised and kc.kernels.LAUNCHES == before,
-          f"{name}: a grad-recording call did not raise before launching")
-    line("kernels", name=name, grad_recording_call="refused")
+    if name == "pixel_shuffle_up_bn":
+        fn, args = kc.flagship_case(name, torch.bfloat16, g)
+        args = list(args)
+        args[0] = args[0].detach().requires_grad_()
+        before = dict(kc.kernels.LAUNCHES)
+        try:
+            fn(*args)
+            raised = False
+        except RuntimeError as e:
+            raised = "no backward" in str(e)
+        torch.cuda.synchronize()
+        check(raised and kc.kernels.LAUNCHES == before,
+              f"{name}: a grad-recording call did not raise before "
+              "launching")
+        line("kernels", name=name, grad_recording_call="refused")
+        return
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        if name == "convnext_block":
+            fn, args = kc.convnext_delta_case(*kc.CONVNEXT_STAGES[0], dtype,
+                                              g)
+        else:
+            fn, args = kc.flagship_case(name, dtype, g,
+                                        kc.flagship_shapes(name)[0])
+        res = kc.function_check(fn, args, g)
+        torch.cuda.synchronize()
+        tol = kc.GRAD_TOLERANCES[dtype]
+        line("kernels", name=name, dtype=tag, grad_recording_call=res[
+            "function"], same_output=res["same_output"],
+             grad_rel_err=f"{res['grad_rel_err']:.3e}", tol=tol)
+        check(res["same_output"] and str(res["function"]).endswith(
+            "FunctionBackward"), f"{name} {tag}: a grad-recording call did "
+            f"not return the kernel's output through its Function: {res}")
+        check(res["grad_rel_err"] <= tol, f"{name} {tag}: gradients "
+              f"{res['grad_rel_err']:.3e} from the plain autodiff > {tol}")
+
+
+def check_delta(torch, kc):
+    """K5's delta-only mode (a null shortcut) against the plain delta at
+    the four stage shapes, batch 3, bf16 and float32, timed beside the
+    eval mode (the shortcut added) on the same inputs."""
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tol = kc.TOLERANCES[dtype]
+        for hw, C in kc.CONVNEXT_STAGES:
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            fn, args = kc.convnext_delta_case(hw, C, dtype, g, batch=3)
+            got = fn(*args)
+            want = kc.plain_reference(fn, args)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            ok = bool((diff <= tol["atol"] + tol["rtol"]
+                       * want.float().abs()).all())
+            ms = kc.time_ms(fn, args)
+            fused_ms = kc.time_ms(kc.convnext_block, args)
+            line("kernels", name="convnext_block", mode="delta_only",
+                 shape=f"3x{hw}x{hw}x{C}", dtype=tag,
+                 max_abs_err=f"{diff.max().item():.3e}",
+                 delta_max_abs=f"{want.float().abs().max().item():.3e}",
+                 ms=f"{ms:.4f}", with_shortcut_ms=f"{fused_ms:.4f}")
+            check(ok and torch.isfinite(got).all().item(),
+                  f"K5 delta-only {tag} 3x{hw}x{hw}x{C}: kernel and plain "
+                  f"disagree beyond {tol}")
 
 
 def check_library(torch, kc, name, case):
@@ -264,7 +363,9 @@ def phase_kernels(torch, kc):
                     f"{row[tag]['per_forward_ms']:.4f}"),
                      plain_per_forward_ms=(
                          f"{row[tag]['per_forward_plain_ms']:.4f}"))
-        check_guard(torch, kc, name)
+        check_autograd(torch, kc, name)
+        if name == "convnext_block":
+            check_delta(torch, kc)
         g = torch.Generator(device="cuda").manual_seed(SEED)
         if attention:
             row.update(check_library(
@@ -514,10 +615,241 @@ def phase_cut(torch, kernels, engine, block_cls, rng):
                               f"{AGREE_MIN} of pixels")
 
 
+def train_batch(torch, g, classes):
+    """One 1024^2 micro-batch on the card: a normalised-scale input and
+    labels with ~5% ignored (255) pixels."""
+    img = torch.randn((1, 1024, 1024, 6), generator=g, device="cuda")
+    gt = torch.randint(0, classes, (1, 1024, 1024), generator=g,
+                       device="cuda")
+    gt[torch.rand((1, 1024, 1024), generator=g, device="cuda") < 0.05] = 255
+    return img, gt
+
+
+def micro_step(torch, kernels, model, img, gt, key, dtype, plain):
+    """One micro-batch's loss and backward, no optimizer: through the
+    kernels or the plain versions, the backward too (its checkpoint
+    recomputes run the wrappers again). Returns the loss."""
+    from multimodal_sam_adapter_torch.nn.layers import set_dropout_key
+
+    model.zero_grad(set_to_none=True)
+    set_dropout_key(model, key)
+    with kernels.plain_kernels() if plain else contextlib.nullcontext():
+        with torch.autocast("cuda", dtype=dtype or torch.bfloat16,
+                            enabled=dtype is not None):
+            loss, _ = model.loss(img, gt)
+        loss.backward()
+    return loss.detach()
+
+
+def grads_of(model):
+    return {n: p.grad.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def cosine(a, b, names):
+    """Cosine similarity of two gradient sets over the tensors `names`."""
+    dot = sum((a[n] * b[n]).sum().item() for n in names)
+    na = sum(a[n].square().sum().item() for n in names)
+    nb = sum(b[n].square().sum().item() for n in names)
+    return dot / (na * nb) ** 0.5
+
+
+def compare_paths(torch, kernels, model, img, gt, tag, dtype, ref=None):
+    """One micro-step through the kernels and one through the plain
+    versions on the same weights, batch and dropout key. bf16 takes `ref`,
+    the float32 plain path's gradients, for the watched tensors on which
+    bf16 autocast itself moves the gradient further than TRAIN_COS_EACH:
+    there the kernel path must be as close to the float32 gradient as the
+    plain bf16 path is (within TRAIN_COS_SLACK). Returns (launches, the
+    plain path's gradients)."""
+    kernels.reset_launches()
+    loss_k = micro_step(torch, kernels, model, img, gt, 1, dtype, False)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    g_k = grads_of(model)
+    loss_p = micro_step(torch, kernels, model, img, gt, 1, dtype, True)
+    g_p = grads_of(model)
+    model.zero_grad(set_to_none=True)
+    lk, lp = loss_k.item(), loss_p.item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    names = list(g_p)
+    rel = (sum((g_k[n] - g_p[n]).square().sum().item() for n in names)
+           / sum(g_p[n].square().sum().item() for n in names)) ** 0.5
+    cos = cosine(g_k, g_p, names)
+    each = {n: cosine(g_k, g_p, [n]) for n in TRAIN_WATCHED}
+    to_f32 = {}
+    if ref is not None:
+        to_f32 = {n: (cosine(g_k, ref, [n]), cosine(g_p, ref, [n]))
+                  for n in TRAIN_WATCHED}
+    short = {n: n.replace("backbone.", "") for n in TRAIN_WATCHED}
+    line("train", dtype=tag, loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
+         loss_rel_err=f"{loss_rel:.3e}", grad_rel_l2=f"{rel:.3e}",
+         grad_cosine=f"{cos:.6f}", watched_cosine=compact(
+             {short[n]: round(v, 5) for n, v in each.items()}),
+         finite=all(torch.isfinite(t).all().item() for t in g_k.values()),
+         launches=compact(counts))
+    if to_f32:
+        line("train", dtype=tag, watched_cosine_to_f32_kernel_plain=compact(
+            {short[n]: [round(k, 5), round(p, 5)]
+             for n, (k, p) in to_f32.items()}),
+             all_cosine_to_f32_kernel_plain=compact(
+                 [round(cosine(g_k, ref, names), 5),
+                  round(cosine(g_p, ref, names), 5)]))
+    check(counts == PER_MICRO_STEP,
+          f"train {tag}: launches {counts} != {PER_MICRO_STEP}")
+    check(loss_rel <= TRAIN_LOSS_RTOL[tag],
+          f"train {tag}: losses {lk} (kernel) vs {lp} (plain)")
+    check(all(torch.isfinite(t).all().item() for t in g_k.values()),
+          f"train {tag}: non-finite gradients")
+    if dtype is None:
+        check(rel <= TRAIN_GRAD_REL_F32,
+              f"train f32: gradients {rel:.3e} from plain > "
+              f"{TRAIN_GRAD_REL_F32}")
+    else:
+        check(cos >= TRAIN_COS_ALL, f"train bf16: cosine {cos:.4f} < "
+                                    f"{TRAIN_COS_ALL}")
+        for n, v in each.items():
+            k32, p32 = to_f32[n]
+            check(v >= TRAIN_COS_EACH or (p32 < TRAIN_COS_EACH and
+                                          k32 >= p32 - TRAIN_COS_SLACK),
+                  f"train bf16: {short[n]}: cosine {v:.4f} to the plain "
+                  f"path; to the float32 gradient {k32:.4f} (kernel), "
+                  f"{p32:.4f} (plain)")
+    return counts, g_p
+
+
+def unchanged_by_rounding(torch, opt, p):
+    """True when the optimizer's last step of `p` is, element by element,
+    at most half an ulp of p's float32 value (with 1% for the first
+    moment's bf16 rounding): p - step rounds back to p. Adam's step is
+    lr * scale * m / (sqrt(v) + eps), so a gradient far below eps gives a
+    step far below lr."""
+    group = next(gr for gr in opt.param_groups if any(q is p for q in
+                                                      gr["params"]))
+    st, t = opt.state[p], opt.updates
+    b1, b2 = opt.betas
+    m = st["mu"].float() / (1 - b1 ** t)
+    v = st["nu"] / (1 - b2 ** t)
+    step = opt.schedule(t - 1) * group["lr_scale"] * (
+        m / (v.sqrt() + opt.eps) + group["weight_decay"] * p)
+    a = p.detach().abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return bool((step.abs() <= 0.505 * ulp).all())
+
+
+def phase_train(torch, kernels, smi, g):
+    """The full-width train step: kernel vs plain on one micro-step (f32,
+    bf16), then two grad_accum-4 updates in bf16 through the kernels.
+    Returns the launches of one micro-step."""
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.engine.train import init_train_state
+    from multimodal_sam_adapter_torch.nn.layers import KeyedDropout
+
+    cfg = get_config("deliver_rgblidar")
+    accum = cfg["data"]["grad_accum"]
+    state = init_train_state(
+        cfg["model"], "cuda", seed=SEED,
+        optimizer_kwargs=dict(cfg["optimizer"], grad_accum_steps=accum))
+    model = state.model
+    rates = sorted({m.rate for m in model.modules()
+                    if isinstance(m, KeyedDropout) and m.rate > 0})
+    classes = cfg["model"]["num_classes"]
+    img, gt = train_batch(torch, g, classes)
+    line("train", config="deliver_rgblidar", input="1x1024x1024x6",
+         with_cp=model.backbone.with_cp, grad_accum=accum,
+         drop_rates=compact([min(rates), max(rates)]),
+         params=sum(p.numel() for p in model.parameters()))
+    check(model.training and model.backbone.with_cp and accum == 4
+          and len(rates) > 2, "train: not the config's train mode")
+
+    _, ref = compare_paths(torch, kernels, model, img, gt, "f32", None)
+    counts, _ = compare_paths(torch, kernels, model, img, gt, "bf16",
+                              torch.bfloat16, ref)
+    del ref
+    train_updates(torch, kernels, state, smi, g)
+    return counts
+
+
+def train_updates(torch, kernels, state, smi, g):
+    """Two grad_accum-4 updates in bf16 through the kernels, then one
+    micro-step profiled."""
+    from multimodal_sam_adapter_torch.engine.train import make_train_step
+    from multimodal_sam_adapter_torch.utils.profiling import profile_calls
+
+    model = state.model
+    classes = model.decode_head.conv_seg.out_channels
+    accum = state.optimizer.grad_accum_steps
+    step = make_train_step(model, state.optimizer,
+                           compute_dtype=torch.bfloat16)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if n.endswith(("running_mean", "running_var"))}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, updated = [], [], []
+    for i in range(TRAIN_MICRO_STEPS):
+        img, gt = train_batch(torch, g, classes)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start.record()
+        out = step(state, dict(img=img, gt=gt))
+        end.record()
+        torch.cuda.synchronize()
+        check(dict(kernels.LAUNCHES) == PER_MICRO_STEP,
+              f"train micro-step {i}: launches {dict(kernels.LAUNCHES)}")
+        times.append(start.elapsed_time(end))
+        losses.append(out["loss"].item())
+        updated.append(out["updated"])
+    peak = torch.cuda.max_memory_allocated()
+    unchanged = [n for n, p in model.named_parameters()
+                 if torch.equal(p, params0[n])]
+    rounded = [n for n in unchanged if unchanged_by_rounding(
+        torch, state.optimizer, model.get_parameter(n))]
+    still = [n for n, b in stats0.items()
+             if torch.equal(model.get_buffer(n), b)]
+    accum_ms = sorted(t for t, u in zip(times[1:], updated[1:]) if not u)
+    update_ms = [t for t, u in zip(times, updated) if u]
+    line("train", dtype="bf16", micro_steps=TRAIN_MICRO_STEPS,
+         updates=state.optimizer.updates,
+         losses=compact([round(v, 5) for v in losses]),
+         first_micro_step_ms=f"{times[0]:.1f}",
+         micro_step_ms=f"{accum_ms[len(accum_ms) // 2]:.1f}",
+         micro_step_ms_all=compact([round(t, 1) for t in times]),
+         update_micro_step_ms=compact([round(t, 1) for t in update_ms]),
+         peak_mem_gib=f"{peak / 2**30:.3f}", card=repr(smi),
+         unchanged_params=compact(unchanged),
+         unchanged_by_rounding=len(rounded), unmoved_bn_stats=len(still))
+    check(all(np.isfinite(v) for v in losses), f"train: losses {losses}")
+    check(updated == [(i + 1) % accum == 0
+                      for i in range(TRAIN_MICRO_STEPS)]
+          and state.optimizer.updates == 2,
+          f"train: updates at {updated}")
+    check(unchanged == rounded, "train: parameters unchanged whose step "
+          f"exceeds half an ulp: {sorted(set(unchanged) - set(rounded))}")
+    check(not still, f"train: BatchNorm statistics unmoved: {still[:5]}")
+
+    img, gt = train_batch(torch, g, classes)
+    trace = Path(__file__).resolve().parent / "build" / "profiles" / (
+        "train_micro_step.json")
+    res = profile_calls(lambda: micro_step(
+        torch, kernels, model, img, gt, 2, torch.bfloat16, False), 1, trace,
+        repeats=3)
+    model.zero_grad(set_to_none=True)
+    fams = list(res["family_ms"].items())[:6]
+    line("train", dtype="bf16", profiled="one micro-step (no update)",
+         busy_ms=f"{res['busy_ms']:.2f}",
+         unprofiled_ms=f"{res['unprofiled_ms']:.2f}",
+         idle_share=f"{res['idle_share']:.3f}",
+         kernel_launches=int(res["kernel_launches"]),
+         top_families_ms=compact({k: round(v, 2) for k, v in fams}),
+         card=repr(smi))
+
+
 def main():
     import torch
 
-    kind = phase_device(torch)
+    kind, smi = phase_device(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import kernel_checks as kc
     from multimodal_sam_adapter_torch.configs.registry import get_config
@@ -561,6 +893,10 @@ def main():
     engine = InferenceEngine(_build_bf16(torch, build_segmentor,
                                          cfg["model"], g), cfg["test_cfg"])
     phase_cut(torch, kernels, engine, ConvNeXtBlock, rng)
+    del engine
+    torch.cuda.empty_cache()
+
+    train_counts = phase_train(torch, kernels, smi, g)
 
     out = []
     for row in rows:
@@ -570,6 +906,7 @@ def main():
         if "product_ms" in row:   # K6's yardstick: a key of its own
             extra["product_ms"] = row.pop("product_ms")
         out.append(dict(row, launches=counts[row["name"]],
+                        train_launches=train_counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",

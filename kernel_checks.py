@@ -9,9 +9,14 @@ Beside each case: the least time the card could take for the same work
 the same function (`library_case`), timed as a yardstick only. K6 has no
 such call; cuDNN's `conv_transpose2d` computes its product alone
 (`product_case`), timed beside it as `product_ms`.
+
+Training: `function_check` holds a grad-recording call of K1-K5 (through
+its autograd Function) against the kernel's output and the plain
+version's autodiff; `convnext_delta_case` is K5's delta-only mode.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -21,7 +26,8 @@ from multimodal_sam_adapter_torch.models.adapter import reference_points
 from multimodal_sam_adapter_torch.ops import kernels
 from multimodal_sam_adapter_torch.ops.attention import (rel_pos_bias_terms,
                                                         split_heads)
-from multimodal_sam_adapter_torch.ops.convnext_block import convnext_block
+from multimodal_sam_adapter_torch.ops.convnext_block import (
+    convnext_block, convnext_block_delta)
 from multimodal_sam_adapter_torch.ops.flash_attention import flash_attention
 from multimodal_sam_adapter_torch.ops.msda_cuda import ms_deform_attn
 from multimodal_sam_adapter_torch.ops.pixel_shuffle import pixel_shuffle_up_bn
@@ -60,6 +66,13 @@ TOLERANCES = {
     torch.float32: dict(atol=1e-4, rtol=1e-4),
     torch.bfloat16: dict(atol=1e-2, rtol=1e-2),
 }
+# A grad-recording call's gradients (the Function's backward: the plain
+# version recomputed, K2's one band of queries at a time) against the plain
+# version's autodiff on the same inputs and cotangent: the largest relative
+# L2 error over the inputs. Both are the same arithmetic up to summation
+# order (K2's bands, atomics in grid_sample's backward); bf16 rounds every
+# product's output.
+GRAD_TOLERANCES = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def plain_reference(fn: Callable, args: tuple) -> torch.Tensor:
@@ -163,6 +176,46 @@ def convnext_case(hw: int, C: int, dtype: torch.dtype, g: torch.Generator,
         _randn((C, hid), g, dtype, hid ** -0.5),
         _randn((C,), g, dtype, 0.05),
         _randn((C,), g, dtype, 0.5))
+
+
+def convnext_delta_case(hw: int, C: int, dtype: torch.dtype,
+                        g: torch.Generator, batch: int = 1
+                        ) -> Tuple[Callable, tuple]:
+    """K5 in its delta-only mode (training: drop path acts on the delta
+    before the add) on `convnext_case`'s inputs."""
+    return convnext_block_delta, convnext_case(hw, C, dtype, g, batch)[1]
+
+
+def _grad_run(fn: Callable, args: tuple, cot: torch.Tensor, plain: bool):
+    """fn(*args) with every floating tensor argument requiring grad, its
+    backward against `cot`: (output, [gradient of each such argument],
+    the name of the output's grad_fn)."""
+    leaves = [a.detach().requires_grad_() if torch.is_tensor(a)
+              and a.is_floating_point() else a for a in args]
+    with kernels.plain_kernels() if plain else contextlib.nullcontext():
+        out = fn(*leaves)
+        node = type(out.grad_fn).__name__
+        out.backward(cot)
+    return out.detach(), [a.grad for a in leaves
+                          if torch.is_tensor(a) and a.requires_grad], node
+
+
+def function_check(fn: Callable, args: tuple, g: torch.Generator
+                   ) -> Dict[str, object]:
+    """A grad-recording call of a kernel's wrapper (through its autograd
+    Function) against the same call without autograd and against the
+    plain version's autodiff: `same_output` (bit-equal to the kernel's
+    output), `grad_rel_err` (the largest relative L2 error of a gradient,
+    vs GRAD_TOLERANCES), `function` (the output's grad_fn)."""
+    with torch.no_grad():
+        want = fn(*args)
+    cot = torch.randn(want.shape, generator=g, device=g.device).to(want.dtype)
+    out, grads, node = _grad_run(fn, args, cot, plain=False)
+    _, plain_grads, _ = _grad_run(fn, args, cot, plain=True)
+    err = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+              for a, b in zip(grads, plain_grads))
+    return dict(same_output=bool(torch.equal(out, want)), grad_rel_err=err,
+                function=node)
 
 
 def convnext_with_guard(x, *params):

@@ -1,7 +1,9 @@
 // One ConvNeXt block: depthwise 7x7 conv (zero padding) + bias ->
 // LayerNorm over C (float32 statistics, eps) -> fc1 + bias -> exact (erf)
 // GELU -> fc2 + bias -> layer scale gamma -> + shortcut. The 72 blocks of
-// the twin ConvNeXt-small trunk (36 per branch) run it once each.
+// the twin ConvNeXt-small trunk (36 per branch) run it once each. With a
+// null shortcut (delta-only mode, for training, where drop path acts on
+// the delta before the add) the add is skipped and out is the delta.
 //
 // Replaces: multimodal_sam_adapter_tpu/ops/convnext_block.py,
 //   convnext_block_fused_fwd (Pallas kernel _kernel). Same arithmetic and
@@ -99,6 +101,7 @@ struct CbArgs {
   const void* w2;
   const void* b2;
   const void* gamma;
+  const void* shortcut;  // null: out is the delta, no add
   void* out;
   int H, W, C, HID;
   float eps;
@@ -416,7 +419,7 @@ constexpr int kFcThreads = 384;  // two consumer warpgroups and a producer
 
 struct FcParams {
   const __nv_bfloat16* bias;   // (N)
-  const __nv_bfloat16* x;      // fc2: the shortcut (M, N)
+  const __nv_bfloat16* x;      // fc2: the shortcut (M, N), or null
   const __nv_bfloat16* gamma;  // fc2: the layer scale (N)
   __nv_bfloat16* out;          // (M, N)
   int M, N, K;
@@ -598,7 +601,9 @@ __global__ void __launch_bounds__(kFcThreads, 1)
                                                            col + 4);
         const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
         const uint4 xr =
-            *reinterpret_cast<const uint4*>(p.x + (size_t)m * p.N + n);
+            p.x != nullptr
+                ? *reinterpret_cast<const uint4*>(p.x + (size_t)m * p.N + n)
+                : make_uint4(0u, 0u, 0u, 0u);  // bf16 zeros: delta only
         const uint32_t xw[4] = {xr.x, xr.y, xr.z, xr.w};
         uint32_t o[4];
 #pragma unroll
@@ -717,7 +722,6 @@ __global__ void __launch_bounds__(kCbThreads)
   float* halo = w1s;
   float* taps = halo + halo_bytes<float, kF32TH, kF32TW>() / 4;
 
-  const float* x = static_cast<const float*>(a.x);
   const float* w1 = static_cast<const float*>(a.w1);
   const float* w2 = static_cast<const float*>(a.w2);
   const float* b1 = static_cast<const float*>(a.b1);
@@ -767,21 +771,25 @@ __global__ void __launch_bounds__(kCbThreads)
   __syncthreads();
   const float* b2 = static_cast<const float*>(a.b2);
   const float* gm = static_cast<const float*>(a.gamma);
+  const float* res = static_cast<const float*>(a.shortcut);
   float* out = static_cast<float*>(a.out);
   for (int i = tid; i < TP * C; i += kCbThreads) {
     const int P = tile_pixel<kF32TW>(a, tl, i / C);
     if (P < 0) continue;
     const int n = i % C;
     const size_t o = (size_t)P * C + n;
-    out[o] = x[o] + (ys[i] + b2[n]) * gm[n];
+    const float delta = (ys[i] + b2[n]) * gm[n];
+    out[o] = res != nullptr ? res[o] + delta : delta;
   }
 }
 
 }  // namespace msa
 
 // x, out (B, H, W, C); dw (C, 1, 7, 7); dw_b, ln_g, ln_b, b2, gamma (C);
-// w1 (HID, C); b1 (HID); w2 (C, HID); all of one dtype. out = x + block(x).
-// C and HID multiples of 8.
+// w1 (HID, C); b1 (HID); w2 (C, HID); all of one dtype. out = shortcut +
+// block(x), shortcut x itself at inference; a null shortcut gives the delta
+// block(x) alone (training: drop path comes between). C and HID multiples
+// of 8.
 // bf16: xn (B*H*W, C) and h (B*H*W, HID) are scratch; tile_h (1, 2, 4 or
 // 8; tile_h * 8 * C <= 16384), fc1_bn (128) and fc2_bn (64, 96, 128 or 192)
 // are the plan (ops/convnext_block.py:convnext_block_plan). Encodes the
@@ -792,7 +800,8 @@ extern "C" int msa_convnext_block(const void* x, const void* dw,
                                   const void* dw_b, const void* ln_g,
                                   const void* ln_b, const void* w1,
                                   const void* b1, const void* w2,
-                                  const void* b2, const void* gamma, void* out,
+                                  const void* b2, const void* gamma,
+                                  const void* shortcut, void* out,
                                   void* xn, void* h, int batch, int H, int W,
                                   int C, int HID, float eps, int tile_h,
                                   int fc1_bn, int fc2_bn, int dtype,
@@ -802,7 +811,8 @@ extern "C" int msa_convnext_block(const void* x, const void* dw,
     return cudaErrorInvalidValue;
   msa::CbArgs a;
   a.x = x, a.dw = dw, a.dw_b = dw_b, a.ln_g = ln_g, a.ln_b = ln_b;
-  a.w1 = w1, a.b1 = b1, a.w2 = w2, a.b2 = b2, a.gamma = gamma, a.out = out;
+  a.w1 = w1, a.b1 = b1, a.w2 = w2, a.b2 = b2, a.gamma = gamma;
+  a.shortcut = shortcut, a.out = out;
   a.H = H, a.W = W, a.C = C, a.HID = HID, a.eps = eps;
   const int n_pix = batch * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -825,7 +835,7 @@ extern "C" int msa_convnext_block(const void* x, const void* dw,
     f1.out = static_cast<bf16*>(h);
     f1.M = n_pix, f1.N = HID, f1.K = C;
     f2.bias = static_cast<const bf16*>(b2);
-    f2.x = static_cast<const bf16*>(x);
+    f2.x = static_cast<const bf16*>(shortcut);
     f2.gamma = static_cast<const bf16*>(gamma);
     f2.out = static_cast<bf16*>(out);
     f2.M = n_pix, f2.N = C, f2.K = HID;

@@ -4,7 +4,9 @@ the counterpart of multimodal_sam_adapter_tpu/models/adapter.py.
 - `Injector`: ViT tokens attend to the pyramid (3-level MSDA, K3) and add
   the result scaled by gamma;
 - `Extractor`: pyramid tokens attend to the ViT grid (1-level MSDA, K4),
-  then a ConvFFN with a multi-scale depthwise conv;
+  then a ConvFFN with a multi-scale depthwise conv, its output under drop
+  path in train mode (the only drop path of the stages, as in the JAX
+  package: its injector and ViT blocks have none);
 - `InteractionBlock`: injector, a span of the backbone's ViT blocks,
   extractor (and two extra extractors in the last stage);
 - `SpatialPriorModuleBimodal`: TwinConvNeXt + fusion neck + 1x1
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import gelu
+from ..nn.layers import DropPath, gelu
 from ..ops.msda import MSDeformAttention
 from .fusion_neck import RoadFormer2Neck
 from .twin_convnext import CONVNEXT_ARCHS, TwinConvNeXt
@@ -46,9 +48,13 @@ def reference_points(spatial_shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _reference_points(shapes: Shapes, n_levels: int,
                       device: torch.device) -> torch.Tensor:
-    """(1, Lq, n_levels, 2) float32 on `device`, broadcast over levels."""
-    ref = torch.as_tensor(reference_points(shapes), device=device)
-    return ref.expand(1, ref.shape[1], n_levels, 2).contiguous()
+    """(1, Lq, n_levels, 2) float32 on `device`, broadcast over levels.
+    Made outside inference mode whatever the caller's mode: a cached
+    inference tensor could not be saved for a later training backward
+    (the MSDA Function saves the points for its recompute)."""
+    with torch.inference_mode(False):
+        ref = torch.as_tensor(reference_points(shapes), device=device)
+        return ref.expand(1, ref.shape[1], n_levels, 2).contiguous()
 
 
 class DWConvMS(nn.Module):
@@ -106,10 +112,12 @@ class Injector(nn.Module):
 
 
 class Extractor(nn.Module):
-    """query(pyramid) + MSDA(<- ViT grid), then query + ConvFFN(LN(query))."""
+    """query(pyramid) + MSDA(<- ViT grid), then query +
+    drop_path(ConvFFN(LN(query)))."""
 
     def __init__(self, dim: int, num_heads: int, n_points: int,
-                 deform_ratio: float, cffn_ratio: float):
+                 deform_ratio: float, cffn_ratio: float,
+                 drop_path: float = 0.0):
         super().__init__()
         self.query_norm = nn.LayerNorm(dim, eps=1e-6)
         self.feat_norm = nn.LayerNorm(dim, eps=1e-6)
@@ -117,13 +125,15 @@ class Extractor(nn.Module):
                                       deform_ratio)
         self.ffn = ConvFFN(dim, int(dim * cffn_ratio))
         self.ffn_norm = nn.LayerNorm(dim, eps=1e-6)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, query, feat, query_shapes: Shapes,
                 hw: Tuple[int, int]) -> torch.Tensor:
         refs = _reference_points(tuple(query_shapes), 1, query.device)
         query = query + self.attn(self.query_norm(query), refs,
                                   self.feat_norm(feat), (tuple(hw),))
-        return query + self.ffn(self.ffn_norm(query), hw[0], hw[1])
+        return query + self.drop_path(self.ffn(self.ffn_norm(query), hw[0],
+                                               hw[1]))
 
 
 class InteractionBlock(nn.Module):
@@ -133,13 +143,14 @@ class InteractionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, n_points: int,
                  deform_ratio: float, cffn_ratio: float,
-                 extra_extractor: bool):
+                 extra_extractor: bool, drop_path: float = 0.0):
         super().__init__()
         self.injector = Injector(dim, num_heads, n_points, 3, deform_ratio)
         self.extractor = Extractor(dim, num_heads, n_points, deform_ratio,
-                                   cffn_ratio)
+                                   cffn_ratio, drop_path)
         self.extra_extractors = nn.ModuleList(
-            Extractor(dim, num_heads, n_points, deform_ratio, cffn_ratio)
+            Extractor(dim, num_heads, n_points, deform_ratio, cffn_ratio,
+                      drop_path)
             for _ in range(2 if extra_extractor else 0))
 
     def forward(self, x, c, blocks: Sequence[nn.Module],
@@ -160,11 +171,12 @@ class SpatialPriorModuleBimodal(nn.Module):
     """
 
     def __init__(self, embed_dim: int, arch: str, img_size: int,
-                 in_chans=(3, 3)):
+                 in_chans=(3, 3), conv_drop_path_rate: float = 0.0):
         super().__init__()
         chans = CONVNEXT_ARCHS[arch]["channels"]
         concat = [2 * c for c in chans]
-        self.twin_conv = TwinConvNeXt(arch, in_chans)
+        self.twin_conv = TwinConvNeXt(arch, in_chans,
+                                      drop_path_rate=conv_drop_path_rate)
         self.smart_fusion = RoadFormer2Neck(
             concat, [(img_size // 2 ** (i + 2)) ** 2 for i in range(4)])
         for i, c in enumerate(concat):

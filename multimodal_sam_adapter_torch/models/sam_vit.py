@@ -4,7 +4,11 @@ multimodal_sam_adapter_tpu/models/sam_vit.py.
 Windowed blocks run K1 (ops/window_attention.py) on the windows of the
 zero-padded grid; global blocks run K2 (ops/flash_attention.py) over the
 whole grid. Both read the raw qkv projection and return heads-packed
-output, so no head-split transpose sits around the kernels.
+output, so no head-split transpose sits around the kernels. When autograd
+records, each kernel runs inside its autograd Function, whose backward is
+the plain version's autodiff. The blocks have no drop path, as the JAX
+package's ViTBlock has none (its only drop path in the stages is the
+extractors', models/adapter.py).
 """
 from __future__ import annotations
 

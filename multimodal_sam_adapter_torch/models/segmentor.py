@@ -1,6 +1,7 @@
 """EncoderDecoder: backbone + SegFormer head, logits resized to the input
-size. The counterpart of multimodal_sam_adapter_tpu/models/segmentor.py
-(`__call__` with train=False; no loss, the port runs inference only).
+size. The counterpart of multimodal_sam_adapter_tpu/models/segmentor.py:
+`forward` is its `__call__` with train=False (eval mode only), `loss` its
+training loss, run in train mode (model.train()).
 
 Build models with `build_segmentor`: it constructs on the meta device (no
 random draw) and then either loads a state_dict or draws every parameter
@@ -9,14 +10,15 @@ from an explicit `torch.Generator`.
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..nn.layers import BiasFreeLayerNorm, LayerNorm2d
+from ..nn.layers import BiasFreeLayerNorm, LayerNorm2d, checkpoint
 from ..utils.interpolate import resize_bilinear
 from .backbone import SAMAdapterBimodal
+from .losses import ohem_cross_entropy
 from .segformer_head import SegformerHead
 
 
@@ -25,10 +27,10 @@ class EncoderDecoder(nn.Module):
                  backbone_cfg: Optional[dict] = None,
                  dropout_ratio: float = 0.1):
         super().__init__()
-        del dropout_ratio  # dropout is the identity in eval
         self.backbone = SAMAdapterBimodal(**(backbone_cfg or {}))
         self.decode_head = SegformerHead(self.backbone.embed_dim,
-                                         num_classes, head_channels)
+                                         num_classes, head_channels,
+                                         dropout_ratio=dropout_ratio)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         """img (B, H, W, C_in) NHWC -> logits (B, H, W, classes) NHWC."""
@@ -37,10 +39,37 @@ class EncoderDecoder(nn.Module):
         logits = resize_bilinear(self.decode_head(feats), img.shape[1:3])
         return logits.permute(0, 2, 3, 1)
 
+    def loss(self, img: torch.Tensor, gt: torch.Tensor,
+             ignore_index: int = 255, ohem_thresh: float = 0.7,
+             ohem_min_kept: int = 100_000, ohem_per_sample: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training loss: OHEM cross entropy on the head's logits
+        resized to the label grid. img (B, H, W, C_in) NHWC, gt (B, H', W')
+        integer labels. Returns (loss, logits (B, H', W', classes) NHWC).
+        Head, resize and loss run as one checkpointed unit while autograd
+        records (the JAX package's nn.remat(_head_loss)): their float32
+        full-resolution logits and softmax are not kept for the backward.
+        In train mode every dropout draws from the key that
+        nn.layers.set_dropout_key set."""
+        feats = self.backbone.forward_features(img.permute(0, 3, 1, 2))
+
+        def head_loss(*feats):
+            logits = resize_bilinear(self.decode_head(list(feats)),
+                                     gt.shape[1:3]).permute(0, 2, 3, 1)
+            loss = ohem_cross_entropy(
+                logits, gt, ignore_index=ignore_index, thresh=ohem_thresh,
+                min_kept=ohem_min_kept, per_sample=ohem_per_sample)
+            return loss, logits
+
+        if torch.is_grad_enabled():
+            return checkpoint(head_loss, *feats, module=self.decode_head)
+        return head_loss(*feats)
+
     def _check_eval(self):
         if self.training:
             raise NotImplementedError(
-                "training is not ported yet: call .eval() first")
+                "forward runs in eval mode only (call .eval() first); the "
+                "train-mode forward is `loss`")
 
 
 # Normalisation layers, whose gains `random_init_` draws around 1: gains
@@ -84,7 +113,8 @@ def build_segmentor(model_cfg: Dict, device, *,
     with torch.device("meta"):
         model = EncoderDecoder(num_classes=cfg["num_classes"],
                                head_channels=cfg["head_channels"],
-                               backbone_cfg=cfg["backbone"])
+                               backbone_cfg=cfg["backbone"],
+                               dropout_ratio=cfg.get("dropout_ratio", 0.1))
     model = model.to_empty(device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)

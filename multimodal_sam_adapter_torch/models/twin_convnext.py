@@ -5,7 +5,10 @@ parameter names follow the reference's `_x` / `_y` branch keys.
 
 Each block runs K5 (ops/convnext_block.py), which reads and writes
 channels-last maps, so the trunk stays channels-last (B, H, W, C) from the
-stem to the stage norms: no permute copy sits between the blocks. The
+stem to the stage norms: no permute copy sits between the blocks. In eval
+mode K5 adds the shortcut itself; in train mode it returns the delta,
+which stochastic depth (a rate rising linearly over each branch's blocks,
+as in the JAX package) drops per sample before the add. The
 modules keep the reference's structure and names (`downsample_layers_x.1.0`
 is still the LayerNorm before the second downsample conv), so a reference
 state_dict loads strictly; their forwards are applied by hand here.
@@ -18,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import LayerNorm2d
-from ..ops.convnext_block import convnext_block
+from ..nn.layers import DropPath, LayerNorm2d
+from ..ops.convnext_block import convnext_block, convnext_block_delta
 
 CONVNEXT_ARCHS = {
     "atto": {"depths": (2, 2, 6, 2), "channels": (40, 80, 160, 320)},
@@ -36,10 +39,11 @@ CONVNEXT_ARCHS = {
 
 
 class ConvNeXtBlock(nn.Module):
-    """dwconv 7x7 -> LN -> Linear(4x) -> GELU -> Linear -> gamma, residual,
-    on a channels-last map (B, H, W, C)."""
+    """dwconv 7x7 -> LN -> Linear(4x) -> GELU -> Linear -> gamma -> drop
+    path, residual, on a channels-last map (B, H, W, C)."""
 
-    def __init__(self, channels: int, mlp_ratio: float = 4.0):
+    def __init__(self, channels: int, mlp_ratio: float = 4.0,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.depthwise_conv = nn.Conv2d(channels, channels, 7, padding=3,
                                         groups=channels)
@@ -47,13 +51,16 @@ class ConvNeXtBlock(nn.Module):
         self.pointwise_conv1 = nn.Linear(channels, int(mlp_ratio * channels))
         self.pointwise_conv2 = nn.Linear(int(mlp_ratio * channels), channels)
         self.gamma = nn.Parameter(torch.ones(channels))
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return convnext_block(
-            x, self.depthwise_conv.weight, self.depthwise_conv.bias,
-            self.norm.weight, self.norm.bias, self.pointwise_conv1.weight,
-            self.pointwise_conv1.bias, self.pointwise_conv2.weight,
-            self.pointwise_conv2.bias, self.gamma, self.norm.eps)
+        args = (x, self.depthwise_conv.weight, self.depthwise_conv.bias,
+                self.norm.weight, self.norm.bias, self.pointwise_conv1.weight,
+                self.pointwise_conv1.bias, self.pointwise_conv2.weight,
+                self.pointwise_conv2.bias, self.gamma, self.norm.eps)
+        if self.training:
+            return x + self.drop_path(convnext_block_delta(*args))
+        return convnext_block(*args)
 
 
 def _ln_last(ln: LayerNorm2d, x: torch.Tensor) -> torch.Tensor:
@@ -68,10 +75,14 @@ def _conv_last(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 class TwinConvNeXt(nn.Module):
     def __init__(self, arch: str = "small", in_chans=(3, 3),
-                 stem_patch_size: int = 4):
+                 stem_patch_size: int = 4, drop_path_rate: float = 0.0):
         super().__init__()
         cfg = CONVNEXT_ARCHS[arch]
         depths, chans = cfg["depths"], cfg["channels"]
+        # per block of a branch, rising linearly from 0 to drop_path_rate
+        total = sum(depths)
+        dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        starts = [sum(depths[:i]) for i in range(4)]
         for br, cin in zip(("x", "y"), in_chans):
             down = nn.ModuleList([nn.Sequential(
                 nn.Conv2d(cin, chans[0], stem_patch_size, stem_patch_size),
@@ -82,8 +93,9 @@ class TwinConvNeXt(nn.Module):
                     nn.Conv2d(chans[i - 1], chans[i], 2, 2)))
             setattr(self, f"downsample_layers_{br}", down)
             setattr(self, f"stages_{br}", nn.ModuleList([
-                nn.Sequential(*[ConvNeXtBlock(c) for _ in range(d)])
-                for d, c in zip(depths, chans)]))
+                nn.Sequential(*[ConvNeXtBlock(c, drop_path_rate=dpr[s + j])
+                                for j in range(d)])
+                for d, c, s in zip(depths, chans, starts)]))
             for i, c in enumerate(chans):
                 setattr(self, f"norm_{br}{i}", LayerNorm2d(c))
 

@@ -14,16 +14,36 @@ Parameter names follow the reference PyTorch checkpoints (the keys that
 `engine/convert_full.py:convert_full_checkpoint` of the JAX package reads),
 so a reference state_dict loads with strict=True.
 
-The port runs inference only: dropout and stochastic depth are identities,
-BatchNorm uses its running statistics, and GELU is the exact erf form.
+In eval mode dropout and stochastic depth are identities and BatchNorm
+uses its running statistics; in train mode their masks come from a key set
+from outside (`set_dropout_key`, the counterpart of the JAX package's
+'dropout' rng), so that a recompute under activation checkpointing
+(`checkpoint`) draws the same masks. GELU is the exact erf form.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit key from `key` and `data` (splitmix64), as
+    jax.random.fold_in derives one: the train step's key from (seed,
+    step), each module's seed from (key, its index)."""
+    return _splitmix64((key & _MASK64) ^ _splitmix64(data & _MASK64)) >> 1
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -71,18 +91,80 @@ class BiasFreeLayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class DropPath(nn.Module):
-    """Stochastic depth. The port runs inference only, where it is the
-    identity; a training forward with a nonzero rate is refused."""
+class KeyedDropout(nn.Module):
+    """Dropout in train mode: where(mask, x / keep, 0) elementwise, as
+    flax's Dropout. The mask is drawn from a generator seeded with the
+    module's `seed` (`set_dropout_key`), not from torch's default
+    generators, so that it is a function of (key, module) alone: the
+    recompute under `checkpoint` and the kernel and plain paths draw the
+    same masks."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.seed: Optional[int] = None
+
+    def mask_shape(self, x: torch.Tensor):
+        return x.shape
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0:
-            raise NotImplementedError("training is not ported yet")
-        return x
+        if not self.training or self.rate == 0:
+            return x
+        if self.seed is None:
+            raise RuntimeError("no dropout key: call set_dropout_key(model, "
+                               "key) before a train-mode forward")
+        keep = 1.0 - self.rate
+        g = torch.Generator(device=x.device).manual_seed(self.seed)
+        mask = torch.rand(self.mask_shape(x), generator=g,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+class DropPath(KeyedDropout):
+    """Stochastic depth: whole samples dropped (timm's drop_path, the JAX
+    package's nn.layers.DropPath)."""
+
+    def mask_shape(self, x: torch.Tensor):
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+def set_dropout_key(model: nn.Module, key: Optional[int]) -> None:
+    """Seed every `KeyedDropout` of `model` for the next train-mode
+    forward (and its recomputes): the i-th in module order draws from
+    fold_in(key, i). None unsets them."""
+    drops = (m for m in model.modules() if isinstance(m, KeyedDropout))
+    for i, m in enumerate(drops):
+        m.seed = None if key is None else fold_in(key, i)
+
+
+def checkpoint(fn: Callable, *args, module: nn.Module):
+    """fn(*args) under torch.utils.checkpoint (non-reentrant): nothing
+    inside is saved for the backward, which runs fn again. The recompute
+    would update the running statistics of every train-mode BatchNorm of
+    `module` (the modules fn runs) a second time, so they are put back as
+    the forward left them after it."""
+    norms = [m for m in module.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             and m.track_running_stats]
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1 or not norms:
+            return fn(*a)
+        saved = [[b.clone() for b in (m.running_mean, m.running_var,
+                                      m.num_batches_tracked)]
+                 for m in norms]
+        try:
+            return fn(*a)
+        finally:
+            for m, (mean, var, n) in zip(norms, saved):
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+                m.num_batches_tracked.copy_(n)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 class Scale(nn.Module):

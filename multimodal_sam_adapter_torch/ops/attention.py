@@ -107,17 +107,26 @@ def rel_pos_bias_terms(q: torch.Tensor, rel_pos_h: torch.Tensor,
     return rel_h, rel_w
 
 
+def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q k^T (..., Nq, Nk) in float32 from q and k as they are (a bf16
+    product is exact in float32), with autocast off."""
+    with torch.autocast(q.device.type, enabled=False):
+        return torch.matmul(q.float(), k.float().transpose(-2, -1))
+
+
 def attention_with_decomposed_rel_pos(q, k, v, rel_pos_h, rel_pos_w,
                                       q_hw: Tuple[int, int], scale: float):
     """Softmax attention with the decomposed rel-pos bias.
 
     q, k, v: (B, N, d), B folding batch, heads (and windows); N = q_h * q_w.
     The bias uses the unscaled q; the softmax runs in float32.
-    Returns (B, N, d) in v's dtype.
+    Returns (B, N, d) in v's dtype. The scores are taken in float32 from
+    the operands' values (the JAX package's preferred_element_type=float32:
+    bf16 scores would move the softmax by ~1e-2), outside autocast.
     """
     q_h, q_w = q_hw
     B, N, _ = q.shape
-    attn = torch.matmul(q * scale, k.transpose(-2, -1)).float()
+    attn = scores_f32(q * scale, k)
     rel_h, rel_w = rel_pos_bias_terms(q, rel_pos_h, rel_pos_w, q_hw, q_hw)
     attn = attn.view(B, q_h, q_w, q_h, q_w)
     attn = (attn + rel_h[..., :, None].float()

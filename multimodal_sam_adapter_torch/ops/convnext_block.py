@@ -9,6 +9,17 @@ the kernel's epilogue, which saves one pass over the map.) On a CUDA tensor
 it launches the hand-written kernels (csrc/convnext_block.cu), on a CPU
 tensor it runs the plain version, `convnext_block_plain`.
 
+`convnext_block_delta` returns the delta alone, gamma * (...), the JAX
+kernel's contract: the kernel's delta-only mode (a null shortcut, no add
+in the epilogue), for training, where drop path acts on the delta before
+the add. Recovering the delta as out - x in bf16 would lose it: with the
+layer scale near 1e-6 at init, |delta| << |x|. When autograd records a
+call, both go through `ConvNextDeltaFunction`: the kernel's delta
+forward, and the autodiff of the plain delta recomputed as its backward.
+Under autocast the kernel runs in the autocast dtype, x and the
+parameters cast to it, as the plain version's convolution and products
+are.
+
 bfloat16 takes three launches behind one C call: a dwconv + LayerNorm
 prologue that writes the normalised map xn (P, C), P = B*H*W, then two
 wgmma GEMMs fed by TMA, fc1 (h = gelu(xn w1^T + b1), (P, HID)) and fc2
@@ -17,7 +28,8 @@ wgmma GEMMs fed by TMA, fc1 (h = gelu(xn w1^T + b1), (P, HID)) and fc2
 CUDA-core kernel.
 
 Replaces multimodal_sam_adapter_tpu/ops/convnext_block.py:
-convnext_block_fused_fwd (Pallas).
+convnext_block_fused_fwd (Pallas), and its custom_vjp _make_diff (the VJP
+of _reference_delta).
 """
 from __future__ import annotations
 
@@ -105,33 +117,96 @@ def convnext_block(x: torch.Tensor, dw: torch.Tensor, dw_b: torch.Tensor,
                    gamma: torch.Tensor, eps: float = 1e-6,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`out`: where to write the result (x's shape and dtype), else a new
-    tensor."""
-    if kernels.use_kernel("convnext_block", x, dw, dw_b, ln_g, ln_b, w1,
-                          b1, w2, b2, gamma):
-        return convnext_block_cuda(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2,
-                                   gamma, eps, out)
-    res = convnext_block_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2,
-                               gamma, eps)
-    return res if out is None else out.copy_(res)
+    tensor; not taken by a call that autograd records (there the add
+    follows the kernel's delta, through its Function)."""
+    params = (dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)
+    if not kernels.use_kernel("convnext_block", x, *params):
+        res = convnext_block_plain(x, *params, eps)
+        return res if out is None else out.copy_(res)
+    if kernels.records_grad(x, *params):
+        if out is not None:
+            raise ValueError("convnext_block: out= takes no call that "
+                             "autograd records")
+        return x + ConvNextDeltaFunction.apply(x, *params, eps)
+    return convnext_block_cuda(x, *params, eps, out)
 
 
-def convnext_block_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma,
+def convnext_block_delta(x: torch.Tensor, dw: torch.Tensor,
+                         dw_b: torch.Tensor, ln_g: torch.Tensor,
+                         ln_b: torch.Tensor, w1: torch.Tensor,
+                         b1: torch.Tensor, w2: torch.Tensor,
+                         b2: torch.Tensor, gamma: torch.Tensor,
                          eps: float = 1e-6) -> torch.Tensor:
-    """The reference block's composition on a channels-last map: depthwise
-    conv, LayerNorm, Linear, exact GELU, Linear, layer scale, shortcut."""
+    """The block's delta alone, gamma * (fc2(gelu(fc1(LN(dwconv(x))))) +
+    b2), without the shortcut: the kernel's delta-only mode."""
+    params = (dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)
+    if not kernels.use_kernel("convnext_block", x, *params):
+        return convnext_delta_plain(x, *params, eps)
+    if kernels.records_grad(x, *params):
+        return ConvNextDeltaFunction.apply(x, *params, eps)
+    return convnext_delta_kernel(x, *params, eps)
+
+
+def convnext_delta_kernel(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """The kernel in its delta-only mode, in the autocast dtype under
+    autocast (x and the parameters cast to it), else in x's dtype."""
+    tensors = (x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)
+    dt = kernels.autocast_dtype(x)
+    with torch.autocast(x.device.type, enabled=False):
+        if dt is not None:
+            tensors = tuple(t.to(dt).contiguous() for t in tensors)
+        return convnext_block_cuda(*tensors, eps, residual=False)
+
+
+class ConvNextDeltaFunction(torch.autograd.Function):
+    """K5 under autograd, the counterpart of the JAX package's
+    convnext_block.py _make_diff: the kernel's delta forward; backward,
+    the autodiff of `convnext_delta_plain` recomputed (the VJP of its
+    _reference_delta), into x and every parameter."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps):
+        ctx.save_for_backward(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)
+        ctx.eps = eps
+        return convnext_delta_kernel(x, dw, dw_b, ln_g, ln_b, w1, b1, w2,
+                                     b2, gamma, eps)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad):
+        return kernels.plain_vjp(convnext_delta_plain, ctx.saved_tensors,
+                                 (ctx.eps,), grad,
+                                 ctx.needs_input_grad[:10]) + (None,)
+
+
+def convnext_delta_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """The reference block's residual branch on a channels-last map:
+    depthwise conv, LayerNorm, Linear, exact GELU, Linear, layer scale."""
     C = x.shape[-1]
     y = F.conv2d(x.permute(0, 3, 1, 2), dw, dw_b, padding=3, groups=C)
     y = F.layer_norm(y.permute(0, 2, 3, 1), (C,), ln_g, ln_b, eps)
     y = F.linear(F.gelu(F.linear(y, w1, b1)), w2, b2)
-    return x + y * gamma.to(y.dtype)
+    return y * gamma.to(y.dtype)
+
+
+def convnext_block_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """The reference block: the shortcut plus `convnext_delta_plain`."""
+    return x + convnext_delta_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2,
+                                    gamma, eps)
 
 
 def convnext_block_cuda(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma,
                         eps: float = 1e-6,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        residual: bool = True) -> torch.Tensor:
     """x (B, H, W, C) contiguous; every parameter of x's dtype and device.
     C and HID multiples of 8; bf16: C <= 2048 (`convnext_block_plan`),
-    float32: C <= 768. Returns x + block(x)."""
+    float32: C <= 768. Returns x + block(x), or with residual=False the
+    delta block(x) alone (a null shortcut: the epilogue adds nothing)."""
     B, H, W, C = x.shape
     HID = w1.shape[0]
     dt = x.dtype
@@ -162,7 +237,8 @@ def convnext_block_cuda(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma,
         status = lib.msa_convnext_block(
             x.data_ptr(), dw.data_ptr(), dw_b.data_ptr(), ln_g.data_ptr(),
             ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+            b2.data_ptr(), gamma.data_ptr(),
+            x.data_ptr() if residual else None, out.data_ptr(),
             None if xn is None else xn.data_ptr(),
             None if h is None else h.data_ptr(), B, H, W, C, HID,
             float(eps), *plan, kernels.dtype_code(x),

@@ -10,10 +10,15 @@ when this module is imported.
 
 Dispatch rule shared by every kernel wrapper (`use_kernel`):
 
-- a CUDA tensor goes through the kernel, or the call raises; it raises
-  too when autograd would record the call (grad enabled and an input that
-  requires grad), since no kernel has a backward yet;
-- a CPU tensor goes through the kernel's plain PyTorch version;
+- a CUDA tensor goes through the kernel, or the call raises;
+- when autograd would record the call (grad enabled and an input that
+  requires grad, `records_grad`), K1-K5 go through their
+  `torch.autograd.Function`: the kernel forward, and a backward that is
+  the autodiff of the plain version recomputed, as the JAX package's
+  `custom_vjp`s have it. K6 has no Function (the JAX package runs it in
+  eval only) and refuses such a call before launching;
+- a CPU tensor goes through the kernel's plain PyTorch version, gradients
+  and all;
 - inside `plain_kernels()` CUDA tensors take the plain version too. Only
   comparisons of a kernel against its plain version enter it.
 
@@ -54,6 +59,9 @@ LAUNCHES: Dict[str, int] = {
     "convnext_block": 0,     # K5 (the twin ConvNeXt's blocks)
     "pixel_shuffle_up_bn": 0,  # K6 (the eval f1 assembly)
 }
+# kernels with no autograd Function: the JAX package runs K6 in eval only
+# (its models/backbone.py fuses f1 only when not training)
+NO_BACKWARD = ("pixel_shuffle_up_bn",)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -68,7 +76,7 @@ _SIGNATURES = {
                                  _I, _I, _F, _VP],
     "msa_deform_attn": [_VP] * 5 + [_I] * 7 + [ctypes.POINTER(_I)]
                        + [_I] * 7 + [_VP],
-    "msa_convnext_block": [_VP] * 13 + [_I, _I, _I, _I, _I, _F, _I, _I,
+    "msa_convnext_block": [_VP] * 14 + [_I, _I, _I, _I, _I, _F, _I, _I,
                                         _I, _I, _VP],
     "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
                                 _LL, _LL, _LL, _LL, _VP, _VP, _VP]
@@ -116,19 +124,52 @@ def on_kernel_device(x: torch.Tensor) -> bool:
 
 
 def use_kernel(name: str, x: torch.Tensor, *inputs) -> bool:
-    """True: launch kernel `name` on `x` (and the other tensor `inputs`);
-    False: run the plain version. A kernel call that autograd would record
-    raises before anything launches: the kernels have no backward yet, and
-    their outputs would silently cut the graph."""
+    """True: kernel `name` serves the call on `x` (and the other tensor
+    `inputs`), through its autograd Function when autograd records it
+    (`records_grad`); False: run the plain version. A kernel without a
+    Function (`NO_BACKWARD`) raises before anything launches on a call
+    that autograd would record: its output would silently cut the
+    graph."""
     if not on_kernel_device(x):
         return False
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(t) and t.requires_grad for t in (x, *inputs)):
+    if name in NO_BACKWARD and records_grad(x, *inputs):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet, and an input "
-            "requires grad; call it under torch.no_grad() / "
-            "torch.inference_mode()")
+            f"{name}: the CUDA kernel has no backward (it serves eval "
+            "only), and an input requires grad; call it under "
+            "torch.no_grad() / torch.inference_mode()")
     return True
+
+
+def records_grad(*tensors) -> bool:
+    """True when autograd would record a call on `tensors`: grad enabled
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)
+
+
+def plain_vjp(plain, inputs, args, grad_out, needs):
+    """The backward of every kernel Function: the plain version
+    `plain(*inputs, *args)` recomputed under autograd at the saved
+    `inputs`, and its gradients against `grad_out` for the inputs whose
+    entry of `needs` is true (None for the others), as the JAX package's
+    `custom_vjp`s take the VJP of their plain formulation. Called inside
+    the Function's backward, so the forward's autocast state holds."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(need))
+                  for t, need in zip(inputs, needs)]
+        out = plain(*leaves, *args)
+        wrt = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, grad_out.to(out.dtype)))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+def autocast_dtype(x: torch.Tensor) -> Optional[torch.dtype]:
+    """The autocast dtype for `x`'s device type when autocast is on there,
+    else None."""
+    dev = x.device.type
+    if torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return None
 
 
 def _nvcc() -> str:

@@ -8,11 +8,14 @@ levels x points, the absolute sampling coordinates and the bilinear gather
 all happen inside it, with no torch op and no host-to-device copy around
 it. The level count and the points per level are template parameters of
 the kernel, so it serves the 3-level injectors (K3) and the 1-level
-extractors (K4); `msda_plan` picks its launch. On a CPU tensor it runs the
-plain `grid_sample` version, `ms_deform_attn_core_pytorch`.
+extractors (K4); `msda_plan` picks its launch. When autograd records the
+call it goes through `MSDeformAttnFunction`: the kernel forward, and the
+autodiff of the plain version recomputed as its backward. On a CPU tensor
+it runs the plain `grid_sample` version, `ms_deform_attn_plain`.
 
 Replaces multimodal_sam_adapter_tpu/ops/msda_pallas.py:
-_digit_pallas_call_multi_prep (K3) and _digit_pallas_call_prep (K4).
+_digit_pallas_call_multi_prep (K3) and _digit_pallas_call_prep (K4), and
+their custom_vjp _make_ms_deform_attn_flat_cached.
 """
 from __future__ import annotations
 
@@ -96,12 +99,46 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Shapes,
     (B or 1, Lq, L, 2) as (x, y) in [0, 1]; offsets (B, Lq, M*L*P*2) in
     level pixels; attn_logits (B, Lq, M*L*P) before the softmax.
     Returns (B, Lq, M*D) in value's dtype."""
-    if kernels.use_kernel(kernel_name(len(spatial_shapes)), value,
-                          reference_points, offsets, attn_logits):
-        return ms_deform_attn_cuda(value, spatial_shapes, reference_points,
-                                   offsets, attn_logits, n_heads, n_points)
+    tensors = (value, reference_points, offsets, attn_logits)
+    if not kernels.use_kernel(kernel_name(len(spatial_shapes)), *tensors):
+        return ms_deform_attn_plain(value, spatial_shapes, reference_points,
+                                    offsets, attn_logits, n_heads, n_points)
+    shapes = tuple(tuple(int(v) for v in hw) for hw in spatial_shapes)
+    if kernels.records_grad(*tensors):
+        return MSDeformAttnFunction.apply(*tensors, shapes, n_heads,
+                                          n_points)
+    return ms_deform_attn_cuda(value, shapes, reference_points, offsets,
+                               attn_logits, n_heads, n_points)
+
+
+def _plain_from_tensors(value, reference_points, offsets, attn_logits,
+                        spatial_shapes, n_heads, n_points):
     return ms_deform_attn_plain(value, spatial_shapes, reference_points,
                                 offsets, attn_logits, n_heads, n_points)
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """K3/K4 under autograd, the counterpart of the JAX package's
+    _make_ms_deform_attn_flat_cached: the one-launch gather on the raw
+    projections forward; backward, the autodiff of `ms_deform_attn_plain`
+    recomputed, into value, offsets and attention logits (and the
+    reference points only when they require grad)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, value, reference_points, offsets, attn_logits,
+                spatial_shapes, n_heads, n_points):
+        ctx.save_for_backward(value, reference_points, offsets, attn_logits)
+        ctx.args = (spatial_shapes, n_heads, n_points)
+        return ms_deform_attn_cuda(value, spatial_shapes, reference_points,
+                                   offsets, attn_logits, n_heads, n_points)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad):
+        return kernels.plain_vjp(_plain_from_tensors, ctx.saved_tensors,
+                                 ctx.args, grad,
+                                 ctx.needs_input_grad[:4]) + (None,) * 3
 
 
 def ms_deform_attn_plain(value, spatial_shapes: Shapes, reference_points,

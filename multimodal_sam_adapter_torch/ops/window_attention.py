@@ -5,11 +5,14 @@ returns the heads-packed (windows, N, C) output. On a CUDA tensor it
 launches the hand-written kernel (csrc/window_attention.cu): bfloat16 on
 the wgmma/TMA core from the (2 ws - 1, d) tables (`rel_table_parts`) and
 the window's 0/1 expansion tiles (`window_expansion`), float32 on the CUDA
-cores from get_rel_pos's gathered (N, d) tables. On a CPU tensor it runs
-the plain version, `window_attention_plain`.
+cores from get_rel_pos's gathered (N, d) tables. When autograd records
+the call it goes through `WindowAttentionFunction`: the kernel forward,
+and the autodiff of the plain version recomputed as its backward. On a
+CPU tensor it runs the plain version, `window_attention_plain`.
 
 Replaces multimodal_sam_adapter_tpu/ops/window_attention.py:
-window_attention_laneblock_fwd (Pallas).
+window_attention_laneblock_fwd (Pallas), and its custom_vjp
+_make_diff_window_attn_laneblock.
 """
 from __future__ import annotations
 
@@ -71,6 +74,17 @@ def window_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                               rel_pos_w):
         return window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws,
                                       num_heads, scale)
+    if kernels.records_grad(qkv, rel_pos_h, rel_pos_w):
+        return WindowAttentionFunction.apply(qkv, rel_pos_h, rel_pos_w, ws,
+                                             num_heads, scale)
+    return window_attention_kernel(qkv, rel_pos_h, rel_pos_w, ws, num_heads,
+                                   scale)
+
+
+def window_attention_kernel(qkv, rel_pos_h, rel_pos_w, ws: int,
+                            num_heads: int, scale: float) -> torch.Tensor:
+    """The kernel's launch for `qkv`'s dtype, with its tables built from
+    the rel-pos parameters."""
     if qkv.dtype == torch.bfloat16:
         return window_attention_bf16_cuda(
             qkv, rel_table_parts(rel_pos_h, ws),
@@ -81,6 +95,29 @@ def window_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     rw = get_rel_pos(ws, ws, rel_pos_w).reshape(N, d).to(qkv.dtype)
     return window_attention_cuda(qkv, rh.contiguous(), rw.contiguous(), ws,
                                  num_heads, scale)
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """K1 under autograd, the counterpart of the JAX package's
+    _make_diff_window_attn_laneblock: the kernel on the raw qkv forward;
+    backward, the autodiff of `window_attention_plain` recomputed, into
+    qkv and both rel-pos parameters (the float32 tables, not the bf16
+    parts the kernel read)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, qkv, rel_pos_h, rel_pos_w, ws, num_heads, scale):
+        ctx.save_for_backward(qkv, rel_pos_h, rel_pos_w)
+        ctx.args = (ws, num_heads, scale)
+        return window_attention_kernel(qkv, rel_pos_h, rel_pos_w, ws,
+                                       num_heads, scale)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad):
+        return kernels.plain_vjp(window_attention_plain, ctx.saved_tensors,
+                                 ctx.args, grad,
+                                 ctx.needs_input_grad[:3]) + (None,) * 3
 
 
 def window_attention_plain(qkv, rel_pos_h, rel_pos_w, ws: int,

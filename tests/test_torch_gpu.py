@@ -14,10 +14,10 @@ import pytest
 import torch
 
 from kernel_checks import (
-    ATTENTION_RAGGED, CONVNEXT_RAGGED, KERNELS, MSDA_RAGGED,
-    PIXEL_SHUFFLE_RAGGED, TOLERANCES, attention_case, convnext_case,
-    flagship_case, flagship_shapes, msda_case, pixel_shuffle_case,
-    plain_reference)
+    ATTENTION_RAGGED, CONVNEXT_RAGGED, CONVNEXT_STAGES, GRAD_TOLERANCES,
+    KERNELS, MSDA_RAGGED, PIXEL_SHUFFLE_RAGGED, TOLERANCES, attention_case,
+    convnext_case, convnext_delta_case, flagship_case, flagship_shapes,
+    function_check, msda_case, pixel_shuffle_case, plain_reference)
 from multimodal_sam_adapter_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -150,17 +150,37 @@ def test_msda_on_a_misaligned_value(shift, dtype):
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_kernels_refuse_a_call_autograd_would_record(name):
-    """With grad enabled and an input that requires grad, each wrapper
-    raises before it launches; under no_grad the same call launches."""
+    """K6 (no backward: eval only) raises before it launches on a call
+    with grad enabled and an input that requires grad; under no_grad the
+    same call launches. K1-K5 take such a call through their autograd
+    Function: the kernel's own output (bit-equal), one launch, and
+    gradients equal to the plain version's autodiff (K2's banded backward
+    against the unbanded one at N = 4096; K5 in its delta-only mode), in
+    bf16 and float32."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
+    if name != "pixel_shuffle_up_bn":
+        for dt in (torch.bfloat16, torch.float32):
+            if name == "convnext_block":
+                fn, args = convnext_delta_case(*CONVNEXT_STAGES[0], dt, g)
+            else:
+                fn, args = flagship_case(name, dt, g,
+                                         flagship_shapes(name)[0])
+            before = kernels.LAUNCHES[name]
+            res = function_check(fn, args, g)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[name] == before + 2  # no grad, Function
+            assert res["same_output"] and res["function"].endswith(
+                "FunctionBackward"), res
+            assert res["grad_rel_err"] <= GRAD_TOLERANCES[dt], res
+        return
     fn, args = flagship_case(name, torch.bfloat16, g,
                              flagship_shapes(name)[0])
     args = list(args)
     i = next(i for i, a in enumerate(args) if torch.is_tensor(a))
     args[i] = args[i].detach().requires_grad_()
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(RuntimeError, match="no backward yet"):
+    with pytest.raises(RuntimeError, match="no backward"):
         fn(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == before
@@ -168,6 +188,18 @@ def test_kernels_refuse_a_call_autograd_would_record(name):
         fn(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", CONVNEXT_STAGES,
+                         ids=["x".join(map(str, s)) for s in CONVNEXT_STAGES])
+def test_convnext_delta_mode_matches_plain_delta(shape, dtype):
+    """K5 with a null shortcut (training's delta-only mode) at the four
+    stage shapes, batch 3, against the plain delta."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    fn, args = convnext_delta_case(*shape, DTYPES[dtype], g, batch=3)
+    _check_launch("convnext_block", fn, args, DTYPES[dtype])
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

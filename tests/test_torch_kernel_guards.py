@@ -1,13 +1,16 @@
-"""The kernel wrappers refuse a call that autograd would record.
+"""What the kernel wrappers do with a call that autograd would record.
 
-No kernel of the port has a backward yet, and each writes into a fresh
-tensor that has no `grad_fn`: a call with grad enabled and an input that
-requires grad must raise before anything launches, not return a tensor
-that gradients silently do not flow through. On the CPU the kernel branch
-is reached by routing CPU tensors to it (`kernels.on_kernel_device`), with
-each launcher replaced by a recorder and the kernel library by a stub that
-fails the test if it is called. The plain versions, which run on CPU
-tensors, keep their gradients.
+Each kernel writes into a fresh tensor that has no `grad_fn`, so a call
+with grad enabled and an input that requires grad must not return it as
+is, or gradients would silently stop there. K1-K5 go through their
+`torch.autograd.Function` (the kernel forward, the plain version's
+autodiff as the backward, as the JAX package's custom_vjps); K6, which
+has none (the JAX package runs it in eval only), raises before anything
+launches. On the CPU the kernel branch is reached by routing CPU tensors
+to it (`kernels.on_kernel_device`), with the kernel library replaced by a
+stub that fails the test if it is called and each launcher by a recorder
+(which, for the Functions' forwards, returns the plain version's output).
+The plain versions, which run on CPU tensors, keep their gradients.
 """
 import importlib
 
@@ -15,7 +18,9 @@ import pytest
 import torch
 
 import kernel_checks as kc
-from multimodal_sam_adapter_torch.ops import kernels
+from multimodal_sam_adapter_torch.ops import (convnext_block, flash_attention,
+                                              kernels, msda_cuda,
+                                              pixel_shuffle, window_attention)
 
 # kernel -> (wrapper module, the launchers its kernel branch calls)
 LAUNCHERS = {
@@ -73,10 +78,76 @@ def kernel_branch(monkeypatch):
     return calls
 
 
+# kernel -> (module, the kernel call its Function's forward makes, that
+# call's plain version (same arguments), the Function, the wrapper's plain
+# version (the wrapper's arguments))
+FUNCTIONS = {
+    "window_attention": (
+        window_attention, "window_attention_kernel",
+        window_attention.window_attention_plain, "WindowAttentionFunction",
+        window_attention.window_attention_plain),
+    "flash_attention": (
+        flash_attention, "flash_attention_kernel",
+        flash_attention.flash_attention_plain, "FlashAttentionFunction",
+        flash_attention.flash_attention_plain),
+    "msda_multi_level": (
+        msda_cuda, "ms_deform_attn_cuda", msda_cuda.ms_deform_attn_plain,
+        "MSDeformAttnFunction", msda_cuda.ms_deform_attn_plain),
+    "msda_single_level": (
+        msda_cuda, "ms_deform_attn_cuda", msda_cuda.ms_deform_attn_plain,
+        "MSDeformAttnFunction", msda_cuda.ms_deform_attn_plain),
+    "convnext_block": (
+        convnext_block, "convnext_delta_kernel",
+        convnext_block.convnext_delta_plain, "ConvNextDeltaFunction",
+        convnext_block.convnext_block_plain),
+}
+
+
+@pytest.fixture
+def function_branch(monkeypatch):
+    """Send CPU tensors to the kernel branch; each Function's forward
+    records its kernel call and returns the plain version's output; K6's
+    launcher only records; any use of the kernel library fails."""
+    calls = []
+
+    def no_library():
+        pytest.fail("the kernel library was reached")
+
+    def recorder(name, plain):
+        def launch(*args, **kwargs):
+            calls.append(name)
+            with torch.no_grad():
+                return plain(*args, **kwargs)
+        return launch
+
+    monkeypatch.setattr(kernels, "on_kernel_device", lambda x: True)
+    monkeypatch.setattr(kernels, "library", no_library)
+    for mod, call, plain, _, _ in FUNCTIONS.values():
+        monkeypatch.setattr(mod, call, recorder(call, plain))
+    monkeypatch.setattr(pixel_shuffle, "pixel_shuffle_up_bn_cuda",
+                        recorder("pixel_shuffle_up_bn", None))
+    return calls
+
+
+def _graph(out):
+    """The class names of every node of out's autograd graph."""
+    seen, todo = set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(n for n, _ in node.next_functions)
+    return {type(n).__name__ for n in seen}
+
+
 @pytest.mark.parametrize("which", ["first", "last"])
 @pytest.mark.parametrize("name", sorted(LAUNCHERS))
 def test_grad_recording_call_raises_before_any_launch(name, which,
-                                                      kernel_branch):
+                                                      function_branch):
+    """K6 still raises before anything launches. K1-K5 record the call
+    through their Function: one kernel call, and gradients equal to the
+    plain version's autodiff on the same inputs."""
     fn, args = _case(name)
     args = list(args)
     pos = _tensor_positions(args)
@@ -84,10 +155,24 @@ def test_grad_recording_call_raises_before_any_launch(name, which,
     args[i] = args[i].detach().requires_grad_()
     before = dict(kernels.LAUNCHES)
     assert torch.is_grad_enabled()
-    with pytest.raises(RuntimeError, match=f"{name}: .*no backward yet"):
-        fn(*args)
-    assert kernel_branch == []
-    assert kernels.LAUNCHES == before
+    if name not in FUNCTIONS:
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            fn(*args)
+        assert function_branch == []
+        assert kernels.LAUNCHES == before
+        return
+    out = fn(*args)
+    assert function_branch == [FUNCTIONS[name][1]]
+    assert f"{FUNCTIONS[name][3]}Backward" in _graph(out)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    (got,) = torch.autograd.grad(out, args[i], cot)
+    leaf = args[i].detach().requires_grad_()
+    plain_args = args[:i] + [leaf] + args[i + 1:]
+    (want,) = torch.autograd.grad(FUNCTIONS[name][4](*plain_args), leaf, cot)
+    # the same arithmetic up to summation order (K2's backward sums the
+    # rel-pos bias first): float32 rounding of the largest gradient
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * want.abs().max().item())
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode",

@@ -241,6 +241,13 @@ def _imported_modules(tree):
             yield node.module or ""
 
 
+def test_the_scan_covers_the_train_modules():
+    """The modules of the training step are scanned like the rest."""
+    for path in ("models/losses.py", "engine/optim.py", "engine/train.py",
+                 "nn/layers.py", "ops/kernels.py"):
+        assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_module_imports_no_jax(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
