@@ -60,6 +60,26 @@ Phases, one line each; any failure exits non-zero before the last line:
    ms (CUDA events) and peak memory beside the card's name and power
    limit, and one micro-step's device busy ms and idle share
    (utils/profiling.py; trace under build/profiles/).
+10. train_entry: the train entry's loop (tools/train.py:build_runner) on
+   deliver_rgblidar at full width, weights as the JAX package initialises
+   them (models/init.py; no pretrained files), the config's own train
+   pipeline (blur, 0.5-2.0 rescale of 1042^2, 1024^2 crop at cat_max_ratio
+   0.75, flip, photometric distortion, native normalize + pad) through the
+   threaded loader, grad_accum 4, bf16 autocast: 8 in-memory raw train
+   samples (1042^2 BGR + LiDAR, 25-class label blocks, 5% ignored) and 2
+   pre-normalised val samples, 2 epochs with a checkpoint and an eval each
+   (the bf16 eval model, K6 on it), into a temporary directory removed at
+   the end. Launches of every micro-step (K1-K5 at 40 / 8 / 8 / 12 / 144,
+   K6 0) and of each eval forward (K6 1); finite losses; 4 updates. Then a
+   new model and optimizer resume from the epoch-0 checkpoint: the
+   restored weights, BatchNorm statistics and optimizer state bit-equal to
+   the state saved, and the next micro-step's loss within 1e-3 relative of
+   the straight run's. Prints micro-step ms through the loader and on
+   pre-made device batches (the same step, the same call), the host's
+   wait for the next batch between steps, loader host ms a sample
+   (threaded and one pipeline call alone), one micro-step's
+   device busy ms and idle share, peak GiB, checkpoint GB and save / load
+   seconds, eval seconds a sample, with the card's name and power limit.
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -106,6 +126,10 @@ TRAIN_COS_ALL, TRAIN_COS_EACH = 0.98, 0.95
 # of the float32 one (the plain path too), the kernel path's cosine to the
 # float32 gradient may trail the plain path's by at most this
 TRAIN_COS_SLACK = 0.02
+# phase 10: the train entry's samples, epochs and resume tolerance
+ENTRY_TRAIN_SAMPLES, ENTRY_VAL_SAMPLES, ENTRY_EPOCHS = 8, 2, 2
+ENTRY_RESUME_RTOL = 1e-3
+ENTRY_TIMED_STEPS = 14         # micro-steps on pre-made device batches
 # bf16: the gradients held one by one, where each kernel's backward lands
 TRAIN_WATCHED = (
     "backbone.blocks.0.attn.qkv.weight",          # K1's block
@@ -749,7 +773,8 @@ def phase_train(torch, kernels, smi, g):
     accum = cfg["data"]["grad_accum"]
     state = init_train_state(
         cfg["model"], "cuda", seed=SEED,
-        optimizer_kwargs=dict(cfg["optimizer"], grad_accum_steps=accum))
+        optimizer_kwargs=dict(cfg["optimizer"], grad_accum_steps=accum),
+        init="random")
     model = state.model
     rates = sorted({m.rate for m in model.modules()
                     if isinstance(m, KeyedDropout) and m.rate > 0})
@@ -846,6 +871,284 @@ def train_updates(torch, kernels, state, smi, g):
          card=repr(smi))
 
 
+class RawTrainSamples:
+    """In-memory raw DELIVER-like train samples, as a dataset's __getitem__
+    returns them: (1042, 1042, 6) float32 BGR + LiDAR levels in 0-255 and
+    25-class labels in 64-pixel blocks with ~5% ignored (255) pixels."""
+
+    def __init__(self, n, seed):
+        from multimodal_sam_adapter_torch.data.datasets import DELIVER
+
+        self.CLASSES, self.PALETTE = DELIVER.CLASSES, DELIVER.PALETTE
+        rng = np.random.default_rng(seed)
+        self.samples = []
+        for i in range(n):
+            blocks = rng.integers(0, len(self.CLASSES), (17, 17),
+                                  dtype=np.uint8)
+            gt = np.repeat(np.repeat(blocks, 64, 0), 64, 1)[:1042, :1042]
+            gt = np.ascontiguousarray(gt)
+            gt[rng.random((1042, 1042)) < 0.05] = 255
+            img = rng.integers(0, 256, (1042, 1042, 6)).astype(np.float32)
+            self.samples.append(dict(img=img, gt=gt, meta={"stem": f"t{i}"}))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def _host_copy(torch, obj):
+    """A copy of a (nested) state_dict with every tensor on the host."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(torch, v) for v in obj)
+    return obj
+
+
+def _bit_equal(torch, a, b, where=""):
+    """Nested state_dicts equal, tensors bit for bit and dtype for dtype."""
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu())) or where
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return where or "keys"
+        for k in a:
+            bad = _bit_equal(torch, a[k], b[k], f"{where}/{k}")
+            if bad is not True:
+                return bad
+        return True
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return where
+        for i, (x, y) in enumerate(zip(a, b)):
+            bad = _bit_equal(torch, x, y, f"{where}/{i}")
+            if bad is not True:
+                return bad
+        return True
+    return a == b or where
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def phase_train_entry(torch, kernels, smi):
+    """The train entry's loop at full width (phase 10). Returns the
+    launches of its run: every micro-step and every eval forward."""
+    import shutil
+    import tempfile
+
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.data.pipelines import TrainPipeline
+    from multimodal_sam_adapter_torch.engine.runner import to_device
+    from multimodal_sam_adapter_torch.tools.train import (build_runner,
+                                                          ckpt_meta)
+    from multimodal_sam_adapter_torch.utils.profiling import profile_calls
+
+    cfg = get_config("deliver_rgblidar")
+    cfg["runner"]["max_epochs"] = cfg["optimizer"]["max_epochs"] = (
+        ENTRY_EPOCHS)
+    cfg["checkpoint"]["max_keep_ckpts"] = ENTRY_EPOCHS   # keep epoch 0's
+    tp = cfg["train_pipeline"]
+    check(cfg["data"] == dict(samples_per_gpu=1, grad_accum=4)
+          and tp["resize"] == dict(img_scale=(1042, 1042),
+                                   ratio_range=(0.5, 2.0))
+          and tp["crop"] == dict(crop_size=(1024, 1024), cat_max_ratio=0.75)
+          and tp["gaussian_blur"] and tp["photometric"],
+          "train_entry: not the config's own train setup")
+    train_ds = RawTrainSamples(ENTRY_TRAIN_SAMPLES, SEED)
+    val_ds = DeliverSamples(ENTRY_VAL_SAMPLES, SEED + 1)
+    meta = ckpt_meta(cfg, "deliver_rgblidar", train_ds, SEED, False)
+    work = tempfile.mkdtemp(prefix="msa_train_entry_")
+    try:
+        def runner_of():
+            return build_runner(cfg, train_ds, work, device="cuda", seed=SEED,
+                                bf16=True, val_ds=val_ds, val_pipeline=None,
+                                meta=meta)
+
+        t0 = time.perf_counter()
+        runner = runner_of()
+        build_s = time.perf_counter() - t0
+        steps, evals, saves, saved = [], [], [], {}
+        step, eval_fn, save = runner.train_step, runner.eval_fn, runner._save
+
+        def timed_step(state, batch):
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(start=t, end=time.perf_counter(),
+                              loss=out["loss"].item(), launches={
+                                  k: kernels.LAUNCHES[k] - before[k]
+                                  for k in before}))
+            return out
+
+        def timed_eval(state):
+            before = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            summary = eval_fn(state)
+            torch.cuda.synchronize()
+            evals.append(dict(seconds=time.perf_counter() - t,
+                              summary=summary, launches={
+                                  k: kernels.LAUNCHES[k] - before[k]
+                                  for k in before}))
+            return summary
+
+        def timed_save(epoch, tag=None):
+            if not saved:      # the state as saved after epoch 0
+                saved["model"] = _host_copy(torch,
+                                            runner.state.model.state_dict())
+                saved["optimizer"] = _host_copy(
+                    torch, runner.state.optimizer.state_dict())
+            t = time.perf_counter()
+            path = save(epoch, tag)
+            saves.append((path, time.perf_counter() - t))
+            return path
+
+        runner.train_step, runner.eval_fn, runner._save = (
+            timed_step, timed_eval, timed_save)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        runner.run()                                   # the main path
+        counts = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        per_epoch = len(runner.train_loader)
+        n_steps = ENTRY_EPOCHS * per_epoch
+        losses = [s["loss"] for s in steps]
+        bad = [i for i, s in enumerate(steps)
+               if s["launches"] != PER_MICRO_STEP]
+        eval_expect = {k: ENTRY_VAL_SAMPLES * v
+                       for k, v in PER_FORWARD.items()}
+        with_loader = [steps[i]["end"] - steps[i - 1]["end"]
+                       for i in range(1, len(steps)) if i % per_epoch]
+        step_only = [s["end"] - s["start"] for s in steps[1:]]
+        # host time between one step's end and the next one's start: the
+        # loader's batch, its pinned copy, and the loop
+        waits = [steps[i]["start"] - steps[i - 1]["end"]
+                 for i in range(1, len(steps)) if i % per_epoch]
+        ckpt = os.path.join(work, "ckpts", f"step_{per_epoch}.pth")
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+        line("train_entry", config="deliver_rgblidar", init="jax",
+             samples=f"{ENTRY_TRAIN_SAMPLES}x1042x1042x6",
+             micro_steps=len(steps), updates=runner.state.optimizer.updates,
+             losses=compact([round(v, 5) for v in losses]),
+             launches=compact(counts),
+             eval_launches=compact([e["launches"] for e in evals]),
+             eval_mIoU=compact([round(e["summary"]["mIoU"], 4)
+                                for e in evals]),
+             peak_mem_gib=f"{peak / 2**30:.3f}", build_s=f"{build_s:.1f}",
+             card=repr(smi))
+        check(len(steps) == n_steps and not bad,
+              f"train_entry: micro-steps {len(steps)} (want {n_steps}), "
+              f"launches off at {bad[:3]}: "
+              f"{[steps[i]['launches'] for i in bad[:1]]}")
+        check(all(e["launches"] == eval_expect for e in evals)
+              and len(evals) == ENTRY_EPOCHS,
+              f"train_entry: eval launches {[e['launches'] for e in evals]}"
+              f" != {eval_expect} each")
+        check(all(np.isfinite(v) for v in losses)
+              and runner.state.optimizer.updates == n_steps // 4,
+              f"train_entry: losses {losses}, "
+              f"{runner.state.optimizer.updates} updates")
+        names = sorted(os.listdir(os.path.join(work, "ckpts")))
+        check(f"step_{per_epoch}.pth" in names and
+              f"step_{n_steps}.pth" in names and "best.pth" in names,
+              f"train_entry: checkpoints {names}")
+        straight_loss = steps[per_epoch]["loss"]       # epoch 1's first
+        del runner, eval_fn, save
+        step = None
+        torch.cuda.empty_cache()
+
+        # a new model and optimizer resume from the epoch-0 checkpoint
+        resumed = runner_of()
+        step = resumed.train_step          # timed_step's from here on
+        t = time.perf_counter()
+        resumed.resume(ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        same_model = _bit_equal(torch, saved["model"],
+                                resumed.state.model.state_dict())
+        same_opt = _bit_equal(torch, saved["optimizer"],
+                              resumed.state.optimizer.state_dict())
+        check(same_model is True and same_opt is True
+              and resumed.start_epoch == 1
+              and resumed.state.step == per_epoch,
+              f"train_entry: restored state differs from the saved one "
+              f"(model {same_model}, optimizer {same_opt}, epoch "
+              f"{resumed.start_epoch}, step {resumed.state.step})")
+        del saved
+        loader = resumed.train_loader
+        loader.set_epoch(1)
+        batches = []
+        for b in loader:
+            batches.append(to_device(b, torch.device("cuda")))
+            if len(batches) == 4:
+                break
+        loss = step(resumed.state, batches[0])["loss"].item()
+        rel = abs(loss - straight_loss) / abs(straight_loss)
+        check(rel <= ENTRY_RESUME_RTOL,
+              f"train_entry: resumed loss {loss} vs straight "
+              f"{straight_loss} (rel {rel:.3e})")
+
+        # the same step on pre-made device batches
+        steps.clear()
+        for i in range(ENTRY_TIMED_STEPS + 1):
+            timed_step(resumed.state, batches[i % len(batches)])
+        device_batches = [steps[i]["end"] - steps[i - 1]["end"]
+                          for i in range(2, len(steps))]
+        # the loader alone: threaded over an epoch, and one pipeline call
+        loader.set_epoch(7)
+        t = time.perf_counter()
+        n = sum(len(b["img"]) for b in loader)
+        loader_ms = (time.perf_counter() - t) * 1e3 / n
+        pipe = TrainPipeline(cfg["train_pipeline"],
+                             cfg["dataset"]["modalities_ch"])
+        t = time.perf_counter()
+        for i in range(2):
+            pipe(train_ds[i], np.random.default_rng(i))
+        pipe_ms = (time.perf_counter() - t) * 1e3 / 2
+        trace = Path(__file__).resolve().parent / "build" / "profiles" / (
+            "train_entry_micro_step.json")
+        res = profile_calls(lambda: step(resumed.state, batches[1]), 1,
+                            trace, repeats=3)
+        line("train_entry", resumed_from=f"epoch 0 (step {per_epoch})",
+             restored_bit_equal=True, loss_resumed=f"{loss:.6f}",
+             loss_straight=f"{straight_loss:.6f}", loss_rel_err=f"{rel:.3e}",
+             micro_step_ms_with_loader=f"{_median(with_loader) * 1e3:.1f}",
+             micro_step_ms_with_loader_all=compact(
+                 [round(x * 1e3, 1) for x in with_loader]),
+             micro_step_ms_step_only=f"{_median(step_only) * 1e3:.1f}",
+             data_wait_ms=f"{_median(waits) * 1e3:.1f}",
+             data_wait_ms_max=f"{max(waits) * 1e3:.1f}",
+             micro_step_ms_device_batches=(
+                 f"{_median(device_batches) * 1e3:.1f}"),
+             micro_step_ms_device_batches_all=compact(
+                 [round(x * 1e3, 1) for x in device_batches]),
+             loader_ms_per_sample=f"{loader_ms:.1f}",
+             loader_threads=loader.num_threads,
+             pipeline_ms_per_sample=f"{pipe_ms:.1f}",
+             busy_ms=f"{res['busy_ms']:.2f}",
+             unprofiled_ms=f"{res['unprofiled_ms']:.2f}",
+             idle_share=f"{res['idle_share']:.3f}",
+             ckpt_gb=f"{ckpt_gb:.3f}",
+             save_s=compact([round(s, 2) for _, s in saves]),
+             load_s=f"{load_s:.2f}",
+             eval_s_per_sample=compact([round(e["seconds"] /
+                                              ENTRY_VAL_SAMPLES, 3)
+                                        for e in evals]),
+             card=repr(smi))
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -897,6 +1200,8 @@ def main():
     torch.cuda.empty_cache()
 
     train_counts = phase_train(torch, kernels, smi, g)
+    torch.cuda.empty_cache()
+    entry_counts = phase_train_entry(torch, kernels, smi)
 
     out = []
     for row in rows:
@@ -907,6 +1212,7 @@ def main():
             extra["product_ms"] = row.pop("product_ms")
         out.append(dict(row, launches=counts[row["name"]],
                         train_launches=train_counts[row["name"]],
+                        train_entry_launches=entry_counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",

@@ -1,7 +1,8 @@
-"""Datasets and the test pipeline of the port (its own copies of the JAX
-package's `data/`, test time only)."""
+"""Datasets, pipelines and the loader of the port (its own copies of the
+JAX package's `data/`)."""
 from .datasets import DELIVER, FMB, MUSES, build_dataset
-from .pipelines import TestPipeline, load_multimodal_image
+from .loader import DataLoader
+from .pipelines import TestPipeline, TrainPipeline, load_multimodal_image
 
-__all__ = ["DELIVER", "FMB", "MUSES", "build_dataset", "TestPipeline",
-           "load_multimodal_image"]
+__all__ = ["DELIVER", "FMB", "MUSES", "build_dataset", "DataLoader",
+           "TestPipeline", "TrainPipeline", "load_multimodal_image"]

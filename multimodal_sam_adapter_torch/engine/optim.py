@@ -16,6 +16,11 @@ reference's own LayerDecayOptimizerConstructor reads them.
 - Gradient accumulation as optax.MultiSteps: `step` is called after every
   micro-batch's backward; the gradients sum in `.grad`, and every k-th
   call updates with their mean over the k micro-batches.
+- `state_dict` carries what MultiSteps' state carries in the JAX package:
+  the micro-batch count, the update count, and, partway through an
+  accumulation, the gradients summed so far; `load_state_dict` restores
+  them and the moments' dtypes (bf16 first moment), so that a resumed run
+  takes the same steps as one never stopped.
 
 Not ported yet: `factored_second_moment` and `ReduceOnPlateau`.
 """
@@ -189,6 +194,44 @@ class LayerDecayAdamW(torch.optim.Optimizer):
                 st["nu"] = nu
                 p.grad = None
         return True
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def state_dict(self) -> dict:
+        """torch's optimizer state (moments, groups) plus `accum`: the
+        micro-batch and update counts and, when the state is taken partway
+        through an accumulation, each parameter's summed gradient (None
+        where it has none), by its index in the groups' order."""
+        sd = super().state_dict()
+        accum = {"mini_step": self.mini_step, "updates": self.updates}
+        if self.mini_step > 0:
+            accum["grads"] = [None if p.grad is None else p.grad.detach().clone()
+                              for p in self._params()]
+        sd["accum"] = accum
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        sd = dict(state_dict)
+        accum = sd.pop("accum")
+        dtypes = {i: {k: v.dtype for k, v in st.items() if torch.is_tensor(v)}
+                  for i, st in sd["state"].items()}
+        super().load_state_dict(sd)
+        params = self._params()
+        # torch casts floating state to its parameter's dtype: put the
+        # bf16 first moment back
+        for i, want in dtypes.items():
+            st = self.state[params[i]]
+            for k, dtype in want.items():
+                st[k] = st[k].to(dtype)
+        self.mini_step = int(accum["mini_step"])
+        self.updates = int(accum["updates"])
+        grads = accum.get("grads")
+        if self.mini_step > 0 and grads is None:
+            raise ValueError("the state is partway through an accumulation "
+                             "but holds no gradients")
+        for p, g in zip(params, grads or [None] * len(params)):
+            p.grad = None if g is None else g.to(p.device, p.dtype).clone()
 
 
 def make_optimizer(model: nn.Module, base_lr: float = 2e-4,

@@ -8,8 +8,8 @@ the optimizer's `step`, which updates the parameters every
 `grad_accum_steps`-th call (engine/optim.py). With `compute_dtype`
 bfloat16 the forward and the backward run under torch.autocast over the
 float32 parameters, as the JAX package runs bf16 compute over float32
-params. Data loading, checkpoints and the epoch loop are not ported yet:
-the step takes in-memory batches.
+params. The step takes batches on the model's device; the epoch loop,
+the loader and checkpoints are engine/runner.py's.
 """
 from __future__ import annotations
 
@@ -70,15 +70,17 @@ def make_train_step(model: EncoderDecoder, optimizer: LayerDecayAdamW,
 
 def init_train_state(model_cfg: Dict, device="cuda", *, seed: int = 0,
                      state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                     optimizer_kwargs: Optional[Dict] = None) -> TrainState:
+                     optimizer_kwargs: Optional[Dict] = None,
+                     init: str = "jax") -> TrainState:
     """A model from a registry `model` config on `device` (the card unless
     the caller passes the CPU), its weights from `state_dict` or drawn from
-    a generator seeded with `seed`, in train mode, with its optimizer
-    (`make_optimizer(**optimizer_kwargs)`)."""
+    a generator seeded with `seed` by `init` ('jax': as the JAX package
+    initialises them, models/init.py; 'random': `random_init_`), in train
+    mode, with its optimizer (`make_optimizer(**optimizer_kwargs)`)."""
     generator = None
     if state_dict is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     model = build_segmentor(model_cfg, device, state_dict=state_dict,
-                            generator=generator).train()
+                            generator=generator, init=init).train()
     optimizer = make_optimizer(model, **(optimizer_kwargs or {}))
     return TrainState(model, optimizer, 0, seed)

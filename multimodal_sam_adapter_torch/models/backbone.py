@@ -45,9 +45,8 @@ class SAMAdapterBimodal(nn.Module):
                  conv_drop_path_rate: float = 0.4, drop_rate: float = 0.0,
                  with_cp: bool = True, init_values: float = 1e-6):
         super().__init__()
-        # init_values: the injector gamma's initial value in the JAX
-        # package's own init; the port's weights come from a state_dict or
-        # `random_init_`, so it is accepted and unused
+        # init_values: the injector gamma's initial value, which
+        # models/init.py reads from the config
         del init_values
         if len(modalities_ch) < 2:
             raise NotImplementedError(

@@ -5,7 +5,10 @@ training loss, run in train mode (model.train()).
 
 Build models with `build_segmentor`: it constructs on the meta device (no
 random draw) and then either loads a state_dict or draws every parameter
-from an explicit `torch.Generator`.
+from an explicit `torch.Generator`: as the JAX package initialises it
+(`init="jax"`, models/init.py, the start of training), or from N(0, std)
+(`random_init_`, the default: every kernel path carries signal, which the
+tests and the kernel checks want).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from torch import nn
 from ..nn.layers import BiasFreeLayerNorm, LayerNorm2d, checkpoint
 from ..utils.interpolate import resize_bilinear
 from .backbone import SAMAdapterBimodal
+from .init import init_weights_
 from .losses import ohem_cross_entropy
 from .segformer_head import SegformerHead
 
@@ -102,11 +106,13 @@ def random_init_(model: nn.Module, generator: torch.Generator,
 
 def build_segmentor(model_cfg: Dict, device, *,
                     state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> EncoderDecoder:
+                    generator: Optional[torch.Generator] = None,
+                    init: str = "random") -> EncoderDecoder:
     """EncoderDecoder from a registry `model` config, in eval mode on
     `device`, with weights from `state_dict` (loaded strictly) or drawn from
-    `generator`. Exactly one of the two must be given."""
+    `generator` by `init`: 'random' (`random_init_`) or 'jax'
+    (models/init.py:init_weights_). Exactly one of state_dict and generator
+    must be given."""
     if (state_dict is None) == (generator is None):
         raise ValueError("give exactly one of state_dict and generator")
     cfg = copy.deepcopy(model_cfg)
@@ -118,6 +124,10 @@ def build_segmentor(model_cfg: Dict, device, *,
     model = model.to_empty(device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
-    else:
+    elif init == "jax":
+        init_weights_(model, cfg["backbone"], generator)
+    elif init == "random":
         random_init_(model, generator)
+    else:
+        raise ValueError(f"unknown init {init!r}")
     return model.eval()

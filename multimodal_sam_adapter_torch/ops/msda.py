@@ -8,7 +8,7 @@ kernel on the card, grid_sample on the CPU).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,20 +42,6 @@ class MSDeformAttention(nn.Module):
                                            n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_value)
         self.output_proj = nn.Linear(d_value, d_model)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """The reference's training init: zero offset and attention-weight
-        kernels, the directional offset bias, Xavier projections."""
-        self.sampling_offsets.weight.zero_()
-        bias = msda_directional_bias_init(self.n_heads, self.n_levels,
-                                          self.n_points)
-        self.sampling_offsets.bias.copy_(torch.from_numpy(bias))
-        self.attention_weights.weight.zero_()
-        self.attention_weights.bias.zero_()
-        for lin in (self.value_proj, self.output_proj):
-            nn.init.xavier_uniform_(lin.weight, generator=generator)
-            lin.bias.zero_()
 
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
                 input_flatten: torch.Tensor,

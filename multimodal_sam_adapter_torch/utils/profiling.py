@@ -19,6 +19,12 @@ figures that stand for the forward as served are therefore:
 `profiled_ms` and `profiled_idle_share` come from the trace window alone;
 `profiled_ms - unprofiled_ms` is the profiler's own cost.
 
+Beside them, the counterparts of the JAX package's utils/profiling.py,
+used by the training runner: `trace(log_dir)` (a torch.profiler trace of
+the block, written as a Chrome trace), `annotate(name)` (a named span in
+such a trace, `torch.profiler.record_function`) and `StepTimer` (an EMA of
+the wall time between ticks).
+
 Run on the card, from the root of a checkout:
 
     python3 -m multimodal_sam_adapter_torch.utils.profiling \
@@ -38,7 +44,7 @@ import json
 import re
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -60,6 +66,42 @@ FAMILIES: Tuple[Tuple[str, str], ...] = (
     ("copies", r"copy|Copy|memcpy|memset|Memcpy|Memset"),
     ("elementwise", r"elementwise|reduce_kernel"),
 )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with torch.profiler (CPU, and CUDA when there is a
+    card) and write `trace.json` (Chrome trace format) into `log_dir`."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def annotate(name: str):
+    """A named span around host code, seen in a `trace`."""
+    return torch.profiler.record_function(name)
+
+
+class StepTimer:
+    """EMA of the wall time between calls of `tick()`, once per step."""
+
+    def __init__(self, alpha: float = 0.05):
+        self.alpha = alpha
+        self.ema: Optional[float] = None
+        self._last: Optional[float] = None
+
+    def tick(self) -> Optional[float]:
+        now = time.perf_counter()
+        if self._last is not None:
+            dt = now - self._last
+            self.ema = dt if self.ema is None else (
+                self.alpha * dt + (1 - self.alpha) * self.ema)
+        self._last = now
+        return self.ema
 
 
 def family(name: str) -> str:

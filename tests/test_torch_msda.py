@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from multimodal_sam_adapter_torch.engine.convert import msda as msda_pairs
+from multimodal_sam_adapter_torch.models.init import init_weights_
 from multimodal_sam_adapter_torch.ops.msda import (
     MSDeformAttention, msda_directional_bias_init)
 from multimodal_sam_adapter_torch.ops.msda_cuda import (
@@ -133,7 +134,7 @@ def test_reset_parameters_is_the_jax_init():
     v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 5, 16)),
                 jnp.zeros((1, 5, 3, 2)), jnp.zeros((1, 24, 16)), shapes)
     tm = MSDeformAttention(16, 3, 4, 2, 0.5)
-    tm.reset_parameters(torch.Generator().manual_seed(0))
+    init_weights_(tm, {}, torch.Generator().manual_seed(0))
     p = v["params"]
     for name in ("sampling_offsets", "attention_weights"):
         np.testing.assert_array_equal(

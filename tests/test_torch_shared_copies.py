@@ -242,10 +242,22 @@ def _imported_modules(tree):
 
 
 def test_the_scan_covers_the_train_modules():
-    """The modules of the training step are scanned like the rest."""
+    """The modules of the training step and of the train entry are
+    scanned like the rest."""
     for path in ("models/losses.py", "engine/optim.py", "engine/train.py",
-                 "nn/layers.py", "ops/kernels.py"):
+                 "nn/layers.py", "ops/kernels.py", "models/init.py",
+                 "data/loader.py", "data/native.py", "data/pipelines.py",
+                 "engine/checkpoint.py", "engine/runner.py",
+                 "utils/profiling.py", "tools/train.py"):
         assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
+
+
+def test_the_port_reads_nothing_under_native():
+    """The port builds its own copy of the host core (data/native.py)
+    and names no file under the JAX package's native/."""
+    for path in PORT_FILES:
+        text = (ROOT / path).read_text()
+        assert "native/" not in text and '"native"' not in text, path
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

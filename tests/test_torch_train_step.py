@@ -100,11 +100,14 @@ def test_train_step_accumulates_then_updates():
     """grad_accum_steps 2: the first micro-batch only accumulates (the
     parameters stay, the gradients are kept), the second updates every
     parameter and clears the gradients; every micro-batch moves the
-    BatchNorm running statistics."""
+    BatchNorm running statistics. Weights from `random_init_`: the JAX
+    init zeroes gates (the neck's local-encoder scales) behind which some
+    parameters get no gradient at all."""
     cfg = get_config("deliver_tiny")
     state = init_train_state(cfg["model"], "cpu", seed=0,
                              optimizer_kwargs=dict(cfg["optimizer"],
-                                                   grad_accum_steps=2))
+                                                   grad_accum_steps=2),
+                             init="random")
     model = state.model
     assert model.training
     step = make_train_step(model, state.optimizer)
