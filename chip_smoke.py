@@ -81,10 +81,35 @@ Phases, one line each; any failure exits non-zero before the last line:
    device busy ms and idle share, peak GiB, checkpoint GB and save / load
    seconds, eval seconds a sample, with the card's name and power limit.
 
+11. ddp: data parallelism. A 1-rank NCCL process group all-reduces once.
+   The float32 step of phase 9's setup (JAX init from the seed, with_cp,
+   drop path and dropout on, OHEM) in this process on a global batch of
+   two 1024^2 samples (grad_accum 1; then grad_accum 2, one update, on
+   four), then two rank processes of this script (`--ddp-rank`; gloo
+   sharing card 0 on a one-card machine, NCCL with a card each
+   otherwise), one sample a rank: (a) the step through
+   DistributedDataParallel: gradients and, after the grad_accum-2 update
+   (no_sync on its first micro-step), parameters bit-equal across the
+   ranks; the ranks' mean loss within 1e-3 relative of the one process's,
+   gradients and parameters within 1e-2 relative L2, BatchNorm running
+   statistics within 1e-3 relative; K1-K5 at 40 / 8 / 8 / 12 / 144 and K6
+   at 0 every micro-step; (b) the train entry's runner in bf16 on each
+   rank (4 raw 1042^2 samples a rank through the config's train pipeline
+   and the loader's shard, grad_accum 2, one epoch, a checkpoint written
+   by rank 0, an eval of one val sample a rank with the histograms summed
+   over the ranks): equal summaries, the summed histograms equal to the
+   sum of the ranks' own, parameters and BatchNorm statistics bit-equal
+   across ranks, and a resume on both ranks restoring the state saved.
+   Prints each rank's micro-step ms, one all-reduce's ms of the gradient
+   volume and peak GiB beside the card's name and power limit: not a
+   speed claim (two ranks sharing one card over gloo say nothing of NCCL
+   across cards).
+
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
 """
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -130,6 +155,14 @@ TRAIN_COS_SLACK = 0.02
 ENTRY_TRAIN_SAMPLES, ENTRY_VAL_SAMPLES, ENTRY_EPOCHS = 8, 2, 2
 ENTRY_RESUME_RTOL = 1e-3
 ENTRY_TIMED_STEPS = 14         # micro-steps on pre-made device batches
+# phase 11: data parallelism. Two ranks; the float32 step (part a) holds
+# one 1024^2 sample a rank, grad_accum 2 for its update; the bf16 runner
+# (part b) 4 raw samples a rank and 2 val samples in all
+DDP_RANKS, DDP_MICRO_STEPS = 2, 2
+DDP_RUNNER_SAMPLES, DDP_VAL_SAMPLES = 4, 2
+DDP_LOSS_RTOL = DDP_STATS_RTOL = 1e-3
+DDP_STATS_ATOL = 1e-6
+DDP_TIMEOUT = 480              # seconds for both ranks together
 # bf16: the gradients held one by one, where each kernel's backward lands
 TRAIN_WATCHED = (
     "backbone.blocks.0.attn.qkv.weight",          # K1's block
@@ -776,13 +809,15 @@ def phase_train(torch, kernels, smi, g):
         optimizer_kwargs=dict(cfg["optimizer"], grad_accum_steps=accum),
         init="random")
     model = state.model
-    rates = sorted({m.rate for m in model.modules()
-                    if isinstance(m, KeyedDropout) and m.rate > 0})
+    drops = [m for m in model.modules()
+             if isinstance(m, KeyedDropout) and m.rate > 0]
+    rates = sorted({m.rate for m in drops})
     classes = cfg["model"]["num_classes"]
     img, gt = train_batch(torch, g, classes)
     line("train", config="deliver_rgblidar", input="1x1024x1024x6",
          with_cp=model.backbone.with_cp, grad_accum=accum,
          drop_rates=compact([min(rates), max(rates)]),
+         dropout_modules=len(drops),   # one mask draw a module and sample
          params=sum(p.numel() for p in model.parameters()))
     check(model.training and model.backbone.with_cp and accum == 4
           and len(rates) > 2, "train: not the config's train mode")
@@ -1149,6 +1184,450 @@ def phase_train_entry(torch, kernels, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 11
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank, world, port):
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                MASTER_PORT=str(port))
+
+
+def ddp_samples(torch):
+    """DDP_MICRO_STEPS x DDP_RANKS 1024^2 samples on the current card from
+    one seeded generator: every process draws the same ones. Micro-step i
+    of the global batch holds samples i * DDP_RANKS ... in rank order."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    return [train_batch(torch, g, 25)
+            for _ in range(DDP_MICRO_STEPS * DDP_RANKS)]
+
+
+def step_run(torch, kernels, samples, accum, wrap, keep_grads=True):
+    """The float32 deliver_rgblidar train step (JAX init from SEED,
+    with_cp, drop path and dropout at the config's rates, OHEM) through
+    `make_train_step` on `samples` (a list of (img, gt)), the model
+    wrapped by `wrap`. Returns the losses, the gradients the optimizer saw
+    at the update, the parameters after it, the BatchNorm statistics, and
+    each micro-step's launches and CUDA-event ms."""
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.engine.train import (init_train_state,
+                                                           make_train_step)
+
+    cfg = get_config("deliver_rgblidar")
+    state = init_train_state(cfg["model"], "cuda", seed=SEED, init="jax",
+                             optimizer_kwargs=dict(cfg["optimizer"],
+                                                   grad_accum_steps=accum))
+    state.seed = SEED + 1
+    named = dict(state.model.named_parameters())
+    out = dict(losses=[], grads=None, launches=[], ms=[])
+
+    def before_update(optimizer, args, kwargs):
+        if keep_grads and optimizer.mini_step + 1 == accum:
+            out["grads"] = {n: p.grad.detach().clone()
+                            for n, p in named.items()}
+
+    state.optimizer.register_step_pre_hook(before_update)
+    step = make_train_step(wrap(state.model), state.optimizer)
+    for img, gt in samples:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start.record()
+        res = step(state, dict(img=img, gt=gt))
+        end.record()
+        torch.cuda.synchronize()
+        out["launches"].append(dict(kernels.LAUNCHES))
+        out["ms"].append(start.elapsed_time(end))
+        out["losses"].append(res["loss"].item())
+    out["params"] = {n: p.detach().clone() for n, p in named.items()}
+    out["stats"] = {n: b.clone() for n, b in state.model.named_buffers()
+                    if n.endswith(("running_mean", "running_var"))}
+    del state, step, named
+    gc.collect()
+    return out
+
+
+def phase_ddp_reference(torch, kernels, work):
+    """Phase 11's single process: a 1-rank NCCL group all-reduces once;
+    then the float32 step on the global batches (grad_accum 1 on the
+    first; grad_accum 2, one update, on both), saved to the host for the
+    ranks."""
+    from multimodal_sam_adapter_torch.parallel import ddp
+
+    env = _rank_env(0, 1, _free_port())
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        ddp.init_distributed("nccl")
+        t = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+        got = ddp.all_reduce_sum(t)
+        torch.cuda.synchronize()
+        backend = torch.distributed.get_backend()
+        line("ddp", nccl_world=ddp.rank_world()[1], backend=backend,
+             all_reduce_equal=torch.equal(got, t))
+        check(backend == "nccl" and torch.equal(got, t),
+              "the 1-rank NCCL group did not all-reduce")
+    finally:
+        ddp.close_distributed()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    samples = ddp_samples(torch)
+    glob = [(torch.cat([img for img, _ in pair]),
+             torch.cat([gt for _, gt in pair]))
+            for pair in (samples[i:i + DDP_RANKS]
+                         for i in range(0, len(samples), DDP_RANKS))]
+    torch.cuda.reset_peak_memory_stats()
+    one = step_run(torch, kernels, glob[:1], 1, lambda m: m)
+    ref = dict(loss=one["losses"][0],
+               grads=_host_copy(torch, one["grads"]),
+               stats=_host_copy(torch, one["stats"]))
+    del one
+    torch.cuda.empty_cache()
+    accum = step_run(torch, kernels, glob, DDP_MICRO_STEPS, lambda m: m,
+                     keep_grads=False)
+    ref["params"] = _host_copy(torch, accum["params"])
+    ref["accum_losses"] = accum["losses"]
+    peak = torch.cuda.max_memory_allocated()
+    line("ddp", reference="1 process, float32, global batch "
+         f"{DDP_RANKS}x1024x1024x6", loss=f"{ref['loss']:.6f}",
+         accum_losses=compact([round(v, 6) for v in accum["losses"]]),
+         micro_step_ms=compact([round(v, 1) for v in accum["ms"]]),
+         peak_mem_gib=f"{peak / 2**30:.3f}")
+    del accum, samples, glob
+    torch.save(ref, work / "reference.pt")
+    del ref
+    torch.cuda.empty_cache()
+
+
+def phase_ddp(torch, kernels, smi):
+    """Phase 11: the reference in this process, then DDP_RANKS rank
+    processes of this script (gloo sharing card 0 on a one-card machine,
+    NCCL with a card each otherwise) run the step and the runner.
+    Returns rank 0's launches of one micro-step of the step through
+    DistributedDataParallel."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="msa_ddp_"))
+    try:
+        phase_ddp_reference(torch, kernels, work)
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= DDP_RANKS else "gloo"
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
+             str(work), backend],
+            env=dict(os.environ, **_rank_env(r, DDP_RANKS, port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DDP_RANKS)]
+        logs, timed_out = [], False
+        t0 = time.perf_counter()
+        for p in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, DDP_TIMEOUT - (time.perf_counter()
+                                                    - t0)))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                for q in procs:
+                    q.kill()
+                out, _ = p.communicate()
+            logs.append(out)
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            text = log if p.returncode == 0 else log[-6000:]
+            for ln in text.splitlines():
+                if ln.startswith(("[ddp", "FAILED")) or p.returncode:
+                    print(ln, flush=True)
+        check(not timed_out, f"ddp: the ranks ran past {DDP_TIMEOUT} s")
+        check(all(p.returncode == 0 for p in procs),
+              f"ddp: rank exit codes {[p.returncode for p in procs]}")
+        results = [json.loads((work / f"rank{r}.json").read_text())
+                   for r in range(DDP_RANKS)]
+        line("ddp", ranks=DDP_RANKS, backend=backend, cards=cards,
+             shared_card=cards < DDP_RANKS,
+             step_micro_step_ms=compact([r["step_ms"] for r in results]),
+             all_reduce_ms=compact([r["all_reduce_ms"] for r in results]),
+             all_reduce_gb=results[0]["all_reduce_gb"],
+             runner_micro_step_ms=compact([r["runner_ms"] for r in results]),
+             peak_mem_gib=compact([r["peak_gib"] for r in results]),
+             card=repr(smi), note="not a speed claim: ranks sharing one "
+             "card over gloo say nothing of NCCL across cards")
+        return results[0]["launches"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _agree(torch, cond, msg):
+    """A check every rank takes together: it fails on all ranks if it
+    fails on one (so no rank waits in a collective for one that quit)."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([1 if cond else 0], device="cuda")
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    check(bool(flag.item()), f"{msg} (this rank: {bool(cond)})")
+
+
+def _same_on_ranks(torch, tensors):
+    """True on every rank when `tensors` (a name -> tensor dict, the same
+    names on every rank) are bit-equal to rank 0's."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).float()
+                      for t in tensors.values()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0)
+    same = torch.equal(flat, theirs)
+    del flat, theirs
+    flag = torch.tensor([1 if same else 0], device="cuda")
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _rel_l2(torch, got, want):
+    num = den = 0.0
+    for n, w in want.items():
+        w = w.to(got[n].device).float()
+        num += (got[n].float() - w).square().sum().item()
+        den += w.square().sum().item()
+    return (num / den) ** 0.5
+
+
+def ddp_rank_step(torch, kernels, rank, world, work):
+    """Part (a) on one rank: the float32 step on its sample of the global
+    batch through DistributedDataParallel, against the reference."""
+    import torch.distributed as dist
+
+    from multimodal_sam_adapter_torch.parallel import all_reduce_sum
+    from multimodal_sam_adapter_torch.parallel import wrap_model
+
+    ref = torch.load(work / "reference.pt", mmap=True, weights_only=True)
+    mine = ddp_samples(torch)[rank::world]
+    torch.cuda.reset_peak_memory_stats()
+    one = step_run(torch, kernels, mine[:1], 1, wrap_model)
+    loss = (all_reduce_sum(torch.tensor(one["losses"][0], device="cuda"))
+            / world).item()
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    grad_rel = _rel_l2(torch, one["grads"], ref["grads"])
+    # each buffer's max error over its max |value|, + DDP_STATS_ATOL: the
+    # JAX init's zero convs leave some norms' batch means at round-off
+    stats_rel, worst = max(
+        ((one["stats"][n] - w.to("cuda")).abs().max().item()
+         / (w.abs().max().item() + DDP_STATS_ATOL / DDP_STATS_RTOL), n)
+        for n, w in ref["stats"].items())
+    same_grads = _same_on_ranks(torch, one["grads"])
+    line(f"ddp rank {rank}", part="a", dtype="f32", loss_mean=f"{loss:.6f}",
+         loss_ref=f"{ref['loss']:.6f}", loss_rel_err=f"{loss_rel:.3e}",
+         grad_rel_l2=f"{grad_rel:.3e}", bn_stats_rel_err=f"{stats_rel:.3e}",
+         bn_stats_worst=worst.replace("backbone.", ""),
+         grads_equal_across_ranks=same_grads,
+         launches=compact(one["launches"][0]))
+    _agree(torch, same_grads, "ddp: gradients differ across ranks")
+    _agree(torch, loss_rel <= DDP_LOSS_RTOL
+           and grad_rel <= TRAIN_GRAD_REL_F32
+           and stats_rel <= DDP_STATS_RTOL,
+           f"ddp: rank {rank} vs one process: loss {loss_rel:.3e}, "
+           f"gradients {grad_rel:.3e}, statistics {stats_rel:.3e}")
+    del one
+    torch.cuda.empty_cache()
+
+    accum = step_run(torch, kernels, mine, DDP_MICRO_STEPS, wrap_model,
+                     keep_grads=False)
+    param_rel = _rel_l2(torch, accum["params"], ref["params"])
+    same_params = _same_on_ranks(torch, accum["params"])
+    launches_ok = all(c == PER_MICRO_STEP for c in accum["launches"])
+    numel = sum(p.numel() for p in accum["params"].values())
+    del accum["params"], ref
+    torch.cuda.empty_cache()
+    # one all-reduce of the gradients' volume (float32), host clock
+    buf = torch.ones(numel, device="cuda")
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    all_reduce_ms = (time.perf_counter() - t) * 1e3
+    ok_sum = buf[0].item() == world
+    del buf
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line(f"ddp rank {rank}", part="a", grad_accum=DDP_MICRO_STEPS,
+         updates=1, losses=compact([round(v, 6) for v in accum["losses"]]),
+         param_rel_l2=f"{param_rel:.3e}",
+         params_equal_across_ranks=same_params,
+         micro_step_ms_no_sync_then_sync=compact(
+             [round(v, 1) for v in accum["ms"]]),
+         all_reduce_ms=f"{all_reduce_ms:.1f}",
+         all_reduce_gb=f"{numel * 4 / 1e9:.3f}", peak_mem_gib=f"{peak:.3f}",
+         launches_each_micro_step=launches_ok)
+    _agree(torch, same_params and launches_ok and ok_sum
+           and param_rel <= TRAIN_GRAD_REL_F32,
+           f"ddp: rank {rank} after the update: parameters equal across "
+           f"ranks {same_params}, {param_rel:.3e} from one process, "
+           f"launches {accum['launches']}")
+    return dict(launches=accum["launches"][0],
+                step_ms=[round(v, 1) for v in accum["ms"]],
+                all_reduce_ms=round(all_reduce_ms, 1),
+                all_reduce_gb=round(numel * 4 / 1e9, 3),
+                peak_gib=round(peak, 3))
+
+
+def ddp_rank_runner(torch, kernels, rank, world, work, device):
+    """Part (b) on one rank: the train entry's runner in bf16, its loader
+    shard, grad_accum 2, one epoch with a checkpoint (rank 0 writes) and
+    an eval of its val shard with the histograms summed over the ranks;
+    then a new runner resumes from the checkpoint."""
+    import torch.distributed as dist
+
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.engine.evaluator import Evaluator
+    from multimodal_sam_adapter_torch.parallel import all_reduce_sum
+    from multimodal_sam_adapter_torch.tools.train import (build_runner,
+                                                          ckpt_meta)
+
+    cfg = get_config("deliver_rgblidar")
+    cfg["data"]["grad_accum"] = 2
+    cfg["runner"]["max_epochs"] = cfg["optimizer"]["max_epochs"] = 1
+    train_ds = RawTrainSamples(DDP_RUNNER_SAMPLES * world, SEED)
+    val_ds = DeliverSamples(DDP_VAL_SAMPLES, SEED + 1)
+    meta = ckpt_meta(cfg, "deliver_rgblidar", train_ds, SEED, False)
+    out_dir = work / "runner"
+    evals, saved, steps = [], {}, []
+    real_run = Evaluator.run
+
+    def recorded_run(self, *args, **kwargs):
+        before = dict(kernels.LAUNCHES)
+        res = real_run(self, *args, **kwargs)
+        evals.append((res, {k: kernels.LAUNCHES[k] - before[k]
+                            for k in before}))
+        return res
+
+    Evaluator.run = recorded_run
+
+    def runner_of():
+        return build_runner(cfg, train_ds, str(out_dir), device=device,
+                            seed=SEED, bf16=True, val_ds=val_ds,
+                            val_pipeline=None, meta=meta)
+
+    runner = runner_of()
+    step, save = runner.train_step, runner._save
+
+    def timed_step(state, batch):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                          loss=res["loss"].item(), launches={
+                              k: kernels.LAUNCHES[k] - before[k]
+                              for k in before}))
+        return res
+
+    def timed_save(epoch, tag=None):
+        if not saved:
+            saved["model"] = _host_copy(torch,
+                                        runner.state.model.state_dict())
+            saved["optimizer"] = _host_copy(
+                torch, runner.state.optimizer.state_dict())
+        return save(epoch, tag)
+
+    runner.train_step, runner._save = timed_step, timed_save
+    torch.cuda.reset_peak_memory_stats()
+    runner.run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res, eval_launches = evals[0]
+    summaries = [None] * world
+    dist.all_gather_object(summaries, res["summary"])
+    summed = {k: all_reduce_sum(v) for k, v in res["rank_payload"].items()}
+    gathered_ok = all(np.array_equal(summed[k], res["payload"][k])
+                      for k in summed)
+    state = dict(runner.state.model.state_dict())
+    same_state = _same_on_ranks(torch, {
+        k: v for k, v in state.items() if v.is_floating_point()})
+    names = sorted(os.listdir(out_dir / "ckpts"))
+    want_names = ["best.pth", f"step_{len(steps)}.pth"]
+    launches_ok = all(s["launches"] == PER_MICRO_STEP for s in steps)
+    eval_expect = {k: len(range(rank, DDP_VAL_SAMPLES, world)) * v
+                   for k, v in PER_FORWARD.items()}
+    line(f"ddp rank {rank}", part="b", dtype="bf16",
+         samples=f"{len(steps)} of {len(train_ds)}",
+         updates=runner.state.optimizer.updates,
+         losses=compact([round(s["loss"], 5) for s in steps]),
+         micro_step_ms=compact([round(s["ms"], 1) for s in steps]),
+         eval_mIoU=f"{res['summary']['mIoU']:.4f}",
+         summaries_equal=all(s == summaries[0] for s in summaries),
+         gathered_equals_sum=gathered_ok, state_equal_across_ranks=same_state,
+         ckpts=compact(names), eval_launches=compact(eval_launches),
+         peak_mem_gib=f"{peak:.3f}")
+    _agree(torch, all(s == summaries[0] for s in summaries) and gathered_ok
+           and same_state and names == want_names and launches_ok
+           and eval_launches == eval_expect
+           and len(steps) == DDP_RUNNER_SAMPLES
+           and runner.state.optimizer.updates == DDP_RUNNER_SAMPLES // 2
+           and all(np.isfinite(s["loss"]) for s in steps),
+           f"ddp runner: summaries {summaries}, gathered {gathered_ok}, "
+           f"state equal {same_state}, checkpoints {names}, launches "
+           f"{[s['launches'] for s in steps]}, eval {eval_launches}")
+    runner_ms = [round(s["ms"], 1) for s in steps]
+    del runner, step, save, state
+    torch.cuda.empty_cache()
+
+    resumed = runner_of()
+    resumed.resume(str(out_dir / "ckpts" / want_names[1]))
+    same_model = _bit_equal(torch, saved["model"],
+                            resumed.state.model.state_dict())
+    same_opt = _bit_equal(torch, saved["optimizer"],
+                          resumed.state.optimizer.state_dict())
+    line(f"ddp rank {rank}", part="b", resumed_from=want_names[1],
+         restored_bit_equal=same_model is True and same_opt is True)
+    _agree(torch, same_model is True and same_opt is True,
+           f"ddp resume: model {same_model}, optimizer {same_opt}")
+    Evaluator.run = real_run
+    return dict(runner_ms=runner_ms, runner_peak_gib=round(peak, 3))
+
+
+def ddp_rank_main(work, backend):
+    """One rank of phase 11 (run by phase_ddp with torchrun's
+    environment): part (a), part (b), then its results to
+    <work>/rank<r>.json."""
+    import torch
+
+    from multimodal_sam_adapter_torch.ops import kernels
+    from multimodal_sam_adapter_torch.parallel import (close_distributed,
+                                                       init_distributed,
+                                                       rank_device)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    rank, world = init_distributed(backend)
+    device = rank_device()
+    torch.cuda.set_device(device)
+    line(f"ddp rank {rank}", world=world, backend=backend, device=device,
+         card=repr(torch.cuda.get_device_name(device)),
+         shares_card_0=backend == "gloo")
+    kernels.library()
+    try:
+        out = ddp_rank_step(torch, kernels, rank, world, work)
+        out.update(ddp_rank_runner(torch, kernels, rank, world, work,
+                                   device))
+        out["peak_gib"] = max(out["peak_gib"], out.pop("runner_peak_gib"))
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        close_distributed()
+
+
 def main():
     import torch
 
@@ -1202,6 +1681,9 @@ def main():
     train_counts = phase_train(torch, kernels, smi, g)
     torch.cuda.empty_cache()
     entry_counts = phase_train_entry(torch, kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddp_counts = phase_ddp(torch, kernels, smi)
 
     out = []
     for row in rows:
@@ -1213,6 +1695,7 @@ def main():
         out.append(dict(row, launches=counts[row["name"]],
                         train_launches=train_counts[row["name"]],
                         train_entry_launches=entry_counts[row["name"]],
+                        ddp_launches=ddp_counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
@@ -1226,7 +1709,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == ["--ddp-rank"]:
+            ddp_rank_main(*sys.argv[2:4])
+        else:
+            main()
     except PhaseError as e:
         print(f"FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)

@@ -7,6 +7,10 @@ multimodal_sam_adapter_tpu/data/loader.py.
   threads' timing;
 - a shard takes every num_shards-th index of the shuffled order
   (DistributedSampler's slice), then drop_last trims it to whole batches;
+  with several shards and drop_last the order is first cut to a multiple
+  of num_shards x batch_size (DistributedSampler(drop_last=True)'s cut),
+  so that every shard yields `len(loader)` batches: data-parallel ranks
+  then take the same number of steps, whose collectives pair up;
 - `num_threads` threads run the pipeline ahead of the consumer, at most
   `prefetch` batches, and the batches come out in order;
 - `_collate` stacks float32 NHWC `img` and int32 `gt` numpy arrays.
@@ -52,6 +56,9 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        if self.drop_last and self.num_shards > 1:
+            whole = self.num_shards * self.batch_size
+            idx = idx[:len(idx) // whole * whole]
         idx = idx[self.shard_index::self.num_shards]
         if self.drop_last:
             idx = idx[:len(idx) // self.batch_size * self.batch_size]

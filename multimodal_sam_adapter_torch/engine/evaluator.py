@@ -13,10 +13,13 @@ it by tests/test_torch_shared_copies.py):
 - inputs are padded to a multiple of 32 and the engine cuts the pad band
   off the logits before its final resize.
 
-`shard=(rank, world)` evaluates indices rank::world of the dataset; the
-histograms are not gathered across processes (the port has no process
-group yet). `show` and `format_only` write images with OpenCV, which the
-port does not use: they raise.
+`shard=(rank, world)` evaluates indices rank::world of the dataset, by
+default this process's rank and the process group's size
+(parallel/ddp.py); with more than one rank the histogram sums (flat and
+on the condition x case grid, float64 on the wire) are summed over the
+ranks, the counterpart of the JAX package's `_gather_shards`, so every
+rank reports the metrics of the whole dataset. `show` and `format_only`
+write images with OpenCV, which the port does not use: they raise.
 
 A dataset yields dicts {'img': (H, W, C) float array, already normalised,
 'gt': (H, W) label map or None, 'meta': {'condition', 'case', ...}} and
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.ddp import all_reduce_sum, rank_world
 from ..utils.interpolate import resize_bilinear
 from .inference import InferenceEngine
 from .metrics import (Hist, _sum_hists, format_metrics_table,
@@ -62,9 +66,16 @@ class Evaluator:
     def run(self, pipeline: Optional[Callable] = None,
             max_samples: Optional[int] = None, format_only: bool = False,
             show: bool = False, progress_every: int = 50,
-            batch_size: int = 1, shard: Tuple[int, int] = (0, 1),
+            batch_size: int = 1,
+            shard: Optional[Tuple[int, int]] = None,
             aug_cfg: Optional[Dict] = None) -> Dict:
-        """Evaluate indices rank::world of the first `max_samples` samples.
+        """Evaluate indices rank::world of the first `max_samples` samples
+        (`shard`, by default the process group's (rank, world)), the
+        histograms summed over the ranks when world > 1 and the process
+        group has more than one rank (a shard given without a group is
+        that shard's own). The results'
+        `payload` holds the histogram sums the metrics come from and, when
+        summed over the ranks, `rank_payload` this rank's own.
 
         pipeline(sample, scale_ratio=1.0) -> sample, the test pipeline;
         aug_cfg {'ratios': [...], 'flip': bool}: multi-scale + flip TTA,
@@ -75,7 +86,7 @@ class Evaluator:
             raise NotImplementedError(
                 "show / format_only write images with OpenCV, which the "
                 "port does not use")
-        rank, world = shard
+        rank, world = shard or rank_world()
         flat: List[Hist] = []
         nested: Dict[str, Dict[str, List[Hist]]] = {}
         n = len(self.dataset) if max_samples is None else min(
@@ -180,6 +191,11 @@ class Evaluator:
 
         flat_sum, dense = self._densify(flat, nested)
         results: Dict = {"payload": {"flat": flat_sum, "nested": dense}}
+        if world > 1 and rank_world()[1] > 1:
+            results["rank_payload"] = results["payload"]
+            flat_sum, dense = all_reduce_sum(flat_sum), all_reduce_sum(dense)
+            results["payload"] = {"flat": flat_sum, "nested": dense}
+            flat, nested = self._undensify(flat_sum, dense)
         if flat:
             results["flat"] = pre_eval_to_metrics(flat, ("mIoU",))
             results["summary"] = {
@@ -197,6 +213,11 @@ class Evaluator:
             results["summary"].update(nested_summary)
         return results
 
+    def _key_grid(self):
+        conds = list(getattr(self.dataset, "CONDITIONS", ()) or ()) + ["all"]
+        cases = list(getattr(self.dataset, "CASES", ()) or ()) + ["ordinary"]
+        return conds, cases
+
     def _densify(self, flat: List[Hist],
                  nested: Dict[str, Dict[str, List[Hist]]]):
         """Histogram sums, flat (4, K) and on the dataset's CONDITIONS x
@@ -204,8 +225,7 @@ class Evaluator:
         K = self.num_classes
         flat_sum = (np.stack(_sum_hists(flat)) if flat
                     else np.zeros((4, K), np.float64))
-        conds = list(getattr(self.dataset, "CONDITIONS", ()) or ()) + ["all"]
-        cases = list(getattr(self.dataset, "CASES", ()) or ()) + ["ordinary"]
+        conds, cases = self._key_grid()
         dense = np.zeros((len(conds), len(cases), 4, K), np.float64)
         for ci, c in enumerate(conds):
             for si, s in enumerate(cases):
@@ -213,6 +233,19 @@ class Evaluator:
                 if hists:
                     dense[ci, si] = np.stack(_sum_hists(hists))
         return flat_sum, dense
+
+    def _undensify(self, flat_sum: np.ndarray, dense: np.ndarray):
+        """Histogram lists from the dense sums: one entry a non-empty cell
+        (the JAX package's `_undensify`)."""
+        flat = [tuple(flat_sum)] if flat_sum.sum() > 0 else []
+        nested: Dict[str, Dict[str, List[Hist]]] = {}
+        conds, cases = self._key_grid()
+        for ci, c in enumerate(conds):
+            for si, s in enumerate(cases):
+                if dense[ci, si].sum() > 0:
+                    nested.setdefault(c, {}).setdefault(s, []).append(
+                        tuple(dense[ci, si]))
+        return flat, nested
 
     def print_tables(self, results: Dict):
         if "flat" in results:

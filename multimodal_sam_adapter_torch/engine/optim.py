@@ -16,18 +16,31 @@ reference's own LayerDecayOptimizerConstructor reads them.
 - Gradient accumulation as optax.MultiSteps: `step` is called after every
   micro-batch's backward; the gradients sum in `.grad`, and every k-th
   call updates with their mean over the k micro-batches.
+- `factored_second_moment`: Adafactor's row / column factored second
+  moment and a bf16 first moment in place of Adam's, as the JAX package
+  chains optax.scale_by_factored_rms (decay 0.8, factored where two axes
+  hold >= 128, epsilon 1e-30) and optax.ema(b1, debias) in bf16. It picks
+  the two largest axes by size, which are the same axes in torch's layout
+  as in JAX's, and the factored update is symmetric in the two. The
+  fusion neck's fused project_in weights hold JAX's gate and value
+  kernels as two halves of the output axis (the modules say which, by a
+  `fused_halves()` method): each half is factored on its own, as JAX
+  factors the two kernels.
 - `state_dict` carries what MultiSteps' state carries in the JAX package:
   the micro-batch count, the update count, and, partway through an
   accumulation, the gradients summed so far; `load_state_dict` restores
   them and the moments' dtypes (bf16 first moment), so that a resumed run
-  takes the same steps as one never stopped.
-
-Not ported yet: `factored_second_moment` and `ReduceOnPlateau`.
+  takes the same steps as one never stopped. `state_dict` is this
+  process's alone: under data parallelism, where each rank's `.grad`
+  holds its own partial sum partway through an accumulation, the runner
+  averages them over the ranks before it takes the state
+  (engine/runner.py:average_partial_grads).
+- `ReduceOnPlateau`: a factor for the schedule, driven by a metric.
 """
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,7 +145,78 @@ def poly_schedule_with_exp_warmup(base_lr: float, steps_per_epoch: int,
     return sched
 
 
+class ReduceOnPlateau:
+    """A learning-rate factor driven by a metric (the reference's
+    mmcv_custom/sched.py, registered but unused by the shipped configs):
+    multiply the schedule's output by `.factor`, call `.update(metric)`
+    after each evaluation. After more than `patience` evaluations without
+    a better value the factor shrinks by `factor`, down to `min_factor`."""
+
+    def __init__(self, mode: str = "max", factor: float = 0.1,
+                 patience: int = 10, min_factor: float = 1e-3):
+        self.mode = mode
+        self.factor_step = factor
+        self.patience = patience
+        self.min_factor = min_factor
+        self.best = None
+        self.wait = 0
+        self.factor = 1.0
+
+    def update(self, value: float) -> float:
+        better = (self.best is None
+                  or (self.mode == "max" and value > self.best)
+                  or (self.mode == "min" and value < self.best))
+        if better:
+            self.best = value
+            self.wait = 0
+        else:
+            self.wait += 1
+            if self.wait > self.patience:
+                self.factor = max(self.factor * self.factor_step,
+                                  self.min_factor)
+                self.wait = 0
+        return self.factor
+
+
 # ---------------------------------------------------------------- AdamW
+
+FACTORED_DECAY = 0.8             # optax.scale_by_factored_rms's defaults
+FACTORED_MIN_DIM = 128
+FACTORED_EPS = 1e-30
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """(d1, d0): the second largest and the largest axis, when both hold
+    at least FACTORED_MIN_DIM (optax's _factored_dims), else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < FACTORED_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _factored_rms(g: torch.Tensor, st: dict, decay: float,
+                  tag: str = "") -> torch.Tensor:
+    """g scaled by the inverse root of its factored second moment (or the
+    full one where the shape does not factor), the moments in `st` (under
+    keys ending in `tag`) updated: optax.scale_by_factored_rms's step."""
+    sq = g * g + FACTORED_EPS
+    dims = _factored_dims(tuple(g.shape))
+    if dims is None:
+        v = decay * st.get("v" + tag, torch.zeros_like(g)) + (1 - decay) * sq
+        st["v" + tag] = v
+        return g * v.rsqrt()
+    d1, d0 = dims
+    v_row = (decay * st.get("v_row" + tag, torch.zeros_like(sq.mean(d0)))
+             + (1 - decay) * sq.mean(d0))
+    v_col = (decay * st.get("v_col" + tag, torch.zeros_like(sq.mean(d1)))
+             + (1 - decay) * sq.mean(d1))
+    st["v_row" + tag], st["v_col" + tag] = v_row, v_col
+    reduced_d1 = d1 - 1 if d1 > d0 else d1
+    row = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
+    return g * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+
 
 class LayerDecayAdamW(torch.optim.Optimizer):
     """AdamW over parameter groups that each carry `lr_scale` (layer decay
@@ -144,7 +228,8 @@ class LayerDecayAdamW(torch.optim.Optimizer):
     def __init__(self, param_groups: List[dict],
                  schedule: Callable[[int], float],
                  betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8, grad_accum_steps: int = 1):
+                 eps: float = 1e-8, grad_accum_steps: int = 1,
+                 factored_second_moment: bool = False):
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps {grad_accum_steps} < 1")
         super().__init__(param_groups, dict(lr_scale=1.0, weight_decay=0.0))
@@ -152,6 +237,7 @@ class LayerDecayAdamW(torch.optim.Optimizer):
         self.betas = tuple(betas)
         self.eps = eps
         self.grad_accum_steps = grad_accum_steps
+        self.factored = factored_second_moment
         self.mini_step = 0   # micro-batches accumulated since the update
         self.updates = 0     # updates made (the schedule's and Adam's count)
 
@@ -173,8 +259,12 @@ class LayerDecayAdamW(torch.optim.Optimizer):
         bc1 = float(f32(1) - f32(b1) ** f32(self.updates))
         bc2 = float(f32(1) - f32(b2) ** f32(self.updates))
         b1_lo = torch.tensor(b1, dtype=torch.bfloat16).item()
+        # the factored moment's decay at this update, 1 - t^-0.8
+        decay = float(f32(1) - np.power(f32(self.updates),
+                                        f32(-FACTORED_DECAY)))
         for group in self.param_groups:
             scale, wd = group["lr_scale"], group["weight_decay"]
+            halves = group.get("factored_halves", False)
             for p in group["params"]:
                 g = (p.grad.float() if p.grad is not None
                      else torch.zeros_like(p, dtype=torch.float32))
@@ -183,15 +273,25 @@ class LayerDecayAdamW(torch.optim.Optimizer):
                 st = self.state[p]
                 if not st:
                     st["mu"] = torch.zeros_like(p, dtype=torch.bfloat16)
-                    st["nu"] = torch.zeros_like(p, dtype=torch.float32)
-                mu = (1 - b1) * g + st["mu"].float() * b1_lo
-                nu = (1 - b2) * (g * g) + b2 * st["nu"]
-                u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
+                if self.factored:
+                    # the bf16 EMA of the factored step, debiased
+                    if halves:
+                        u = torch.cat([_factored_rms(h, st, decay, f".{j}")
+                                       for j, h in enumerate(g.chunk(2))])
+                    else:
+                        u = _factored_rms(g, st, decay)
+                    mu = (1 - b1) * u + st["mu"].float() * b1_lo
+                    u = mu / bc1
+                else:
+                    nu = (1 - b2) * (g * g) + b2 * st.get(
+                        "nu", torch.zeros_like(g))
+                    mu = (1 - b1) * g + st["mu"].float() * b1_lo
+                    u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
+                    st["nu"] = nu
                 if wd:
                     u = u + wd * p
                 p.sub_(u * scale * lr)
                 st["mu"] = mu.to(torch.bfloat16)
-                st["nu"] = nu
                 p.grad = None
         return True
 
@@ -243,12 +343,17 @@ def make_optimizer(model: nn.Module, base_lr: float = 2e-4,
                    power: float = 0.9, min_lr: float = 0.0,
                    warmup_epochs: int = 10, warmup_ratio: float = 0.1,
                    grad_accum_steps: int = 1, freeze_backbone: bool = False,
-                   twin_frozen_stages: int = 0) -> LayerDecayAdamW:
+                   twin_frozen_stages: int = 0,
+                   schedule: Optional[Callable[[int], float]] = None,
+                   factored_second_moment: bool = False) -> LayerDecayAdamW:
     """The JAX package's make_optimizer on `model`'s parameters: one group
-    per (lr scale, weight decay), the schedule, grad accumulation."""
-    schedule = poly_schedule_with_exp_warmup(
-        base_lr, steps_per_epoch, max_epochs, power, min_lr, warmup_epochs,
-        warmup_ratio)
+    per (lr scale, weight decay), the schedule (`schedule(updates made)`,
+    the poly / warmup one when None), grad accumulation, Adam's second
+    moment or the factored one."""
+    if schedule is None:
+        schedule = poly_schedule_with_exp_warmup(
+            base_lr, steps_per_epoch, max_epochs, power, min_lr,
+            warmup_epochs, warmup_ratio)
     named = list(model.named_parameters())
     scales = layer_decay_scales(named, num_layers, layer_decay_rate)
     masks = []
@@ -257,15 +362,22 @@ def make_optimizer(model: nn.Module, base_lr: float = 2e-4,
     if twin_frozen_stages > 0:
         masks.append(twin_convnext_freeze_mask(named, twin_frozen_stages))
     decay = weight_decay_mask(named)
-    groups: Dict[Tuple[float, float], dict] = {}
+    # weights that hold two JAX kernels as halves of dim 0, as their
+    # modules declare them
+    halved = {id(p) for m in model.modules() if hasattr(m, "fused_halves")
+              for p in m.fused_halves()}
+    groups: Dict[Tuple[float, float, bool], dict] = {}
     for n, p in named:
         s = scales[n]
         for m in masks:
             s *= m[n]
         wd = weight_decay if decay[n] else 0.0
-        groups.setdefault((s, wd), dict(params=[], names=[], lr_scale=s,
-                                         weight_decay=wd))
-        groups[(s, wd)]["params"].append(p)
-        groups[(s, wd)]["names"].append(n)
+        halves = factored_second_moment and id(p) in halved
+        group = groups.setdefault((s, wd, halves), dict(
+            params=[], names=[], lr_scale=s, weight_decay=wd))
+        if halves:
+            group["factored_halves"] = True
+        group["params"].append(p)
+        group["names"].append(n)
     return LayerDecayAdamW(list(groups.values()), schedule, betas, eps,
-                           grad_accum_steps)
+                           grad_accum_steps, factored_second_moment)

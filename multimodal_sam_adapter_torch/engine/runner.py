@@ -8,6 +8,14 @@ runner moves to the model's device (pinned host memory, non_blocking);
 the loss is read back (`.item()`, a device sync) only at log intervals.
 Named spans `data`, `train_step`, `checkpoint` and `eval` mark the phases
 in a torch.profiler trace (utils/profiling.py).
+
+On data-parallel ranks (parallel/ddp.py) every rank runs the loop on its
+shard of the loader; rank 0 alone writes checkpoints, `best.pth` and the
+log, the others wait for it at a barrier; the logged loss is the mean
+over the ranks (all-reduced at log intervals only); every rank evaluates
+its shard and the evaluator sums the histograms over the ranks, so every
+rank takes the same best-checkpoint and early-stopping decisions; every
+rank resumes from the same file.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.ddp import all_reduce_sum, barrier, is_main, rank_world
 from ..utils.profiling import annotate
 from .checkpoint import (latest_checkpoint, load_state_dict_file,
                          restore_checkpoint, save_checkpoint)
@@ -58,15 +67,19 @@ class EarlyStopping:
 
 class TrainLogger:
     """Loss / throughput to stdout and `<work_dir>/train_log.jsonl`, and to
-    TensorBoard when `torch.utils.tensorboard` imports."""
+    TensorBoard when `torch.utils.tensorboard` imports; on rank 0 only.
+    Every rank calls `log_step`: the logged values are means over the
+    ranks."""
 
     def __init__(self, work_dir: str, interval: int = 50,
                  tensorboard: bool = True):
         self.interval = interval
-        os.makedirs(work_dir, exist_ok=True)
-        self.jsonl = open(osp.join(work_dir, "train_log.jsonl"), "a")
-        self.tb = None
-        if tensorboard:
+        self.main = is_main()
+        self.jsonl = self.tb = None
+        if self.main:
+            os.makedirs(work_dir, exist_ok=True)
+            self.jsonl = open(osp.join(work_dir, "train_log.jsonl"), "a")
+        if tensorboard and self.main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -83,6 +96,10 @@ class TrainLogger:
         self._count += 1
         if step % self.interval != 0 and step != 1:
             return
+        world = rank_world()[1]
+        if world > 1:    # a collective: every rank logs the same steps
+            metrics = {k: all_reduce_sum(torch.as_tensor(v)) / world
+                       for k, v in metrics.items()}
         dt = time.time() - self._t0
         rec = {"step": step, "epoch": epoch,
                "iters_per_s": round(self._count / max(dt, 1e-9), 3),
@@ -103,14 +120,36 @@ class TrainLogger:
                 self.tb.add_scalar(f"val/{k}", float(v), epoch)
 
     def _write(self, rec: Dict) -> None:
+        if not self.main:
+            return
         print(json.dumps(rec), flush=True)
         self.jsonl.write(json.dumps(rec) + "\n")
         self.jsonl.flush()
 
     def close(self) -> None:
-        self.jsonl.close()
+        if self.jsonl:
+            self.jsonl.close()
         if self.tb:
             self.tb.close()
+
+
+def average_partial_grads(optimizer) -> None:
+    """Partway through an accumulation on data-parallel ranks, replace
+    each rank's summed gradients (DDP averages them only at the
+    accumulation's last micro-step) by their mean over the ranks: a
+    collective, which every rank calls before the optimizer's state is
+    saved. The update at the accumulation's end averages them to the same
+    value (the mean is linear), so the run that saved and the run that
+    resumes go on from the same gradients. A no-op on one process and at
+    an accumulation's boundary."""
+    world = rank_world()[1]
+    if world == 1 or optimizer.mini_step == 0:
+        return
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.grad.copy_(all_reduce_sum(p.grad) / world)
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -179,7 +218,9 @@ class EpochRunner:
         self.state.step = int(payload["meta"]["step"])
         self.start_epoch = self.state.step // max(len(self.train_loader), 1)
         self.best_metric = payload["meta"].get("best_metric", -np.inf)
-        print(f"resumed from {path} at step {self.state.step}", flush=True)
+        if is_main():
+            print(f"resumed from {path} at step {self.state.step}",
+                  flush=True)
         return path
 
     def load_weights(self, path: str) -> None:
@@ -190,13 +231,22 @@ class EpochRunner:
             load_state_dict_file(path, self.device), strict=True)
 
     def _save(self, epoch: int, tag: Optional[str] = None) -> str:
+        """Every rank averages an accumulation's partial gradients (a
+        collective), rank 0 writes, every rank waits for it. Returns the
+        path (on every rank)."""
         meta = dict(self.ckpt_meta, epoch=epoch, iter=self.state.step,
                     best_metric=float(self.best_metric))
         with annotate("checkpoint"):
-            return save_checkpoint(
-                self.ckpt_dir, self.state.model, self.state.optimizer,
-                self.state.step, meta,
-                self.max_keep_ckpts if tag is None else 0, tag=tag)
+            average_partial_grads(self.state.optimizer)
+            path = osp.join(self.ckpt_dir,
+                            f"{tag or f'step_{self.state.step}'}.pth")
+            if is_main():
+                path = save_checkpoint(
+                    self.ckpt_dir, self.state.model, self.state.optimizer,
+                    self.state.step, meta,
+                    self.max_keep_ckpts if tag is None else 0, tag=tag)
+            barrier()
+            return path
 
     def run(self) -> TrainState:
         for epoch in range(self.start_epoch, self.max_epochs):
@@ -225,7 +275,8 @@ class EpochRunner:
                     self.best_metric = val
                     self._save(epoch, tag="best")
                 if self.early_stopping and self.early_stopping.update(summary):
-                    print(f"early stopping at epoch {epoch}", flush=True)
+                    if is_main():
+                        print(f"early stopping at epoch {epoch}", flush=True)
                     self.stop_training = True
             if self.stop_training:
                 break

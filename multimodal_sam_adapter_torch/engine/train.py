@@ -1,25 +1,37 @@
 """The train step: the counterpart of
 multimodal_sam_adapter_tpu/engine/train.py.
 
-One call of the step takes one micro-batch: the segmentor's `loss` in
+One call of the step takes one micro-batch: the segmentor's loss in
 train mode (dropout and drop path keyed by (seed, step), BatchNorm on the
-batch's statistics, updating its running statistics), its backward, and
-the optimizer's `step`, which updates the parameters every
+global batch's statistics, updating its running statistics), its
+backward, and the optimizer's `step`, which updates the parameters every
 `grad_accum_steps`-th call (engine/optim.py). With `compute_dtype`
 bfloat16 the forward and the backward run under torch.autocast over the
 float32 parameters, as the JAX package runs bf16 compute over float32
 params. The step takes batches on the model's device; the epoch loop,
 the loader and checkpoints are engine/runner.py's.
+
+Under data parallelism the step takes the DistributedDataParallel that
+wraps the segmentor (parallel/ddp.py:wrap_model) and this rank's share of
+the global batch: the loss goes through the wrapper's forward, each
+micro-step that does not end an accumulation runs under `no_sync`, so the
+gradients summed in `.grad` are all-reduced (averaged) once an update,
+and the dropout masks are drawn for this rank's rows of the global batch.
+N ranks of B samples then take the step of one process on the N x B
+samples in rank order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from ..models.segmentor import EncoderDecoder, build_segmentor
 from ..nn.layers import fold_in, set_dropout_key
+from ..parallel.ddp import rank_world
 from .optim import LayerDecayAdamW, make_optimizer
 
 
@@ -34,7 +46,7 @@ class TrainState:
     seed: int = 0
 
 
-def make_train_step(model: EncoderDecoder, optimizer: LayerDecayAdamW,
+def make_train_step(model: nn.Module, optimizer: LayerDecayAdamW,
                     ignore_index: int = 255, ohem_thresh: float = 0.7,
                     ohem_min_kept: int = 100_000,
                     ohem_per_sample: bool = True,
@@ -43,24 +55,34 @@ def make_train_step(model: EncoderDecoder, optimizer: LayerDecayAdamW,
                                   Dict[str, object]]:
     """The step: train_step(state, batch) -> {'loss', 'updated'}.
 
+    model: the segmentor, or the DistributedDataParallel wrapping it.
     batch: {'img': (B, H, W, C) float NHWC, 'gt': (B, H, W) integer
-    labels}, moved to the model's device. ohem_per_sample=True is the
-    reference's per-rank OHEM threshold at samples_per_gpu=1 (PARITY.md).
+    labels}, moved to the model's device; under data parallelism this
+    rank's B samples, rows rank x B ... of the global batch (every rank
+    holds the same B). 'loss' is this rank's. ohem_per_sample=True is the
+    reference's per-rank OHEM threshold at samples_per_gpu=1 (PARITY.md):
+    a mean of per-sample means, which the ranks' average keeps.
     compute_dtype: None (float32) or the autocast dtype."""
-    device = next(model.parameters()).device
+    segmentor = getattr(model, "module", model)
+    device = next(segmentor.parameters()).device
+    ddp = isinstance(model, nn.parallel.DistributedDataParallel)
+    shard = rank_world()
 
     def train_step(state: TrainState, batch) -> Dict[str, object]:
-        model.train()
-        set_dropout_key(model, fold_in(state.seed, state.step))
+        segmentor.train()
         img = batch["img"].to(device, non_blocking=True)
         gt = batch["gt"].to(device, non_blocking=True)
-        with torch.autocast(device.type, dtype=compute_dtype,
-                            enabled=compute_dtype is not None):
-            loss, _ = model.loss(img, gt, ignore_index=ignore_index,
-                                 ohem_thresh=ohem_thresh,
-                                 ohem_min_kept=ohem_min_kept,
-                                 ohem_per_sample=ohem_per_sample)
-        loss.backward()
+        set_dropout_key(segmentor, fold_in(state.seed, state.step), shard)
+        last = optimizer.mini_step + 1 >= optimizer.grad_accum_steps
+        with (model.no_sync() if ddp and not last
+              else contextlib.nullcontext()):
+            with torch.autocast(device.type, dtype=compute_dtype,
+                                enabled=compute_dtype is not None):
+                loss, _ = model(img, gt, ignore_index=ignore_index,
+                                ohem_thresh=ohem_thresh,
+                                ohem_min_kept=ohem_min_kept,
+                                ohem_per_sample=ohem_per_sample)
+            loss.backward()
         updated = optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "updated": updated}

@@ -23,7 +23,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..nn.layers import KeyedDropout, checkpoint
+from ..nn.layers import BatchNorm2d, KeyedDropout, checkpoint
 from ..ops.pixel_shuffle import pixel_shuffle_up_bn
 from ..utils.interpolate import resize_bicubic, resize_bilinear
 from .adapter import InteractionBlock, SpatialPriorModuleBimodal
@@ -79,7 +79,7 @@ class SAMAdapterBimodal(nn.Module):
             for si in range(n_stages))
         self.up = nn.ConvTranspose2d(embed_dim, embed_dim, 2, 2)
         for i in range(1, 5):
-            setattr(self, f"norm{i}", nn.BatchNorm2d(embed_dim, eps=1e-5))
+            setattr(self, f"norm{i}", BatchNorm2d(embed_dim, eps=1e-5))
 
     def forward_features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, C_in, H, W). Returns four NCHW maps of embed_dim channels."""

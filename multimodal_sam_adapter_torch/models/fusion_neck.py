@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import ConvNormAct, Scale, Scale2, gelu, h_swish
+from ..nn.layers import (BatchNorm2d, ConvNormAct, Scale, Scale2, gelu,
+                         h_swish)
 
 
 class _WithBiasLayerNorm(nn.Module):
@@ -134,6 +135,13 @@ class GatedDWConvMlp(nn.Module):
                                 groups=channels, bias=False)
         self.project_out = nn.Conv2d(channels, channels, 1, bias=False)
 
+    def fused_halves(self):
+        """The weights that hold two of the JAX package's kernels as the
+        halves of dim 0: project_in, its project_in_gate and
+        project_in_val. The factored second moment takes each half as a
+        weight of its own (engine/optim.py:make_optimizer)."""
+        return [self.project_in.weight]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
         return self.project_out(gelu(x1) * x2)
@@ -158,7 +166,7 @@ class CoordinateAttention(nn.Module):
         super().__init__()
         mip = max(8, channels // reduction)
         self.conv1 = nn.Conv2d(channels, mip, 1)
-        self.bn1 = nn.BatchNorm2d(mip, eps=1e-5)
+        self.bn1 = BatchNorm2d(mip, eps=1e-5)
         self.conv_h = nn.Conv2d(mip, channels, 1)
         self.conv_w = nn.Conv2d(mip, channels, 1)
 

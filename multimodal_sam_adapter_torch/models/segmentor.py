@@ -1,7 +1,8 @@
 """EncoderDecoder: backbone + SegFormer head, logits resized to the input
 size. The counterpart of multimodal_sam_adapter_tpu/models/segmentor.py:
 `forward` is its `__call__` with train=False (eval mode only), `loss` its
-training loss, run in train mode (model.train()).
+training loss, run in train mode (model.train()), also reached as
+`forward(img, gt)`.
 
 Build models with `build_segmentor`: it constructs on the meta device (no
 random draw) and then either loads a state_dict or draws every parameter
@@ -36,8 +37,14 @@ class EncoderDecoder(nn.Module):
                                          num_classes, head_channels,
                                          dropout_ratio=dropout_ratio)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        """img (B, H, W, C_in) NHWC -> logits (B, H, W, classes) NHWC."""
+    def forward(self, img: torch.Tensor, gt: Optional[torch.Tensor] = None,
+                **loss_kw):
+        """img (B, H, W, C_in) NHWC -> logits (B, H, W, classes) NHWC, in
+        eval mode. With `gt`, `loss(img, gt, **loss_kw)` in train mode:
+        the train step calls the loss through `forward`, where
+        DistributedDataParallel prepares its gradient all-reduce."""
+        if gt is not None:
+            return self.loss(img, gt, **loss_kw)
         self._check_eval()
         feats = self.backbone.forward_features(img.permute(0, 3, 1, 2))
         logits = resize_bilinear(self.decode_head(feats), img.shape[1:3])
@@ -73,7 +80,7 @@ class EncoderDecoder(nn.Module):
         if self.training:
             raise NotImplementedError(
                 "forward runs in eval mode only (call .eval() first); the "
-                "train-mode forward is `loss`")
+                "train-mode forward is `loss`, or forward(img, gt)")
 
 
 # Normalisation layers, whose gains `random_init_` draws around 1: gains

@@ -18,16 +18,23 @@ In eval mode dropout and stochastic depth are identities and BatchNorm
 uses its running statistics; in train mode their masks come from a key set
 from outside (`set_dropout_key`, the counterpart of the JAX package's
 'dropout' rng), so that a recompute under activation checkpointing
-(`checkpoint`) draws the same masks. GELU is the exact erf form.
+(`checkpoint`) draws the same masks, and each sample's mask from its row
+in the global batch, so that N ranks draw the masks of one process on the
+global batch. Train-mode BatchNorm normalises with the statistics of the
+global batch (merged over the ranks, parallel/ddp.py), as the JAX
+package's BatchNorm under a batch-sharded mesh. GELU is the exact erf form.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from ..parallel.ddp import rank_world
 
 _MASK64 = (1 << 64) - 1
 
@@ -93,19 +100,24 @@ class BiasFreeLayerNorm(nn.Module):
 
 class KeyedDropout(nn.Module):
     """Dropout in train mode: where(mask, x / keep, 0) elementwise, as
-    flax's Dropout. The mask is drawn from a generator seeded with the
+    flax's Dropout. The mask is drawn from a generator seeded from the
     module's `seed` (`set_dropout_key`), not from torch's default
     generators, so that it is a function of (key, module) alone: the
     recompute under `checkpoint` and the kernel and plain paths draw the
-    same masks."""
+    same masks. Under data parallelism (`shard` = (rank, world), every
+    rank holding B samples) sample b's mask comes from fold_in(seed,
+    rank x B + b), its row in the global batch, so that each rank draws
+    the masks one process draws for its rows: one draw (one launch) a
+    sample."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
         self.seed: Optional[int] = None
+        self.shard = (0, 1)
 
     def mask_shape(self, x: torch.Tensor):
-        return x.shape
+        return (1,) + tuple(x.shape[1:])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0:
@@ -114,11 +126,14 @@ class KeyedDropout(nn.Module):
             raise RuntimeError("no dropout key: call set_dropout_key(model, "
                                "key) before a train-mode forward")
         keep = 1.0 - self.rate
-        g = torch.Generator(device=x.device).manual_seed(self.seed)
-        mask = torch.rand(self.mask_shape(x), generator=g,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+        first = self.shard[0] * x.shape[0]
+        g = torch.Generator(device=x.device)
+        u = [torch.rand(self.mask_shape(x), device=x.device,
+                        generator=g.manual_seed(fold_in(self.seed, first + b)))
+             for b in range(x.shape[0])]
+        u = u[0] if len(u) == 1 else torch.cat(u)
+        return torch.where(u < keep, x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class DropPath(KeyedDropout):
@@ -126,16 +141,20 @@ class DropPath(KeyedDropout):
     package's nn.layers.DropPath)."""
 
     def mask_shape(self, x: torch.Tensor):
-        return (x.shape[0],) + (1,) * (x.dim() - 1)
+        return (1,) * x.dim()
 
 
-def set_dropout_key(model: nn.Module, key: Optional[int]) -> None:
+def set_dropout_key(model: nn.Module, key: Optional[int],
+                    shard: Tuple[int, int] = (0, 1)) -> None:
     """Seed every `KeyedDropout` of `model` for the next train-mode
     forward (and its recomputes): the i-th in module order draws from
-    fold_in(key, i). None unsets them."""
+    fold_in(key, i), for the rows of the global batch that rank `shard[0]`
+    of `shard[1]` holds (rank x B ... rank x B + B - 1). None unsets
+    them."""
     drops = (m for m in model.modules() if isinstance(m, KeyedDropout))
     for i, m in enumerate(drops):
         m.seed = None if key is None else fold_in(key, i)
+        m.shard = tuple(shard)
 
 
 def checkpoint(fn: Callable, *args, module: nn.Module):
@@ -165,6 +184,136 @@ def checkpoint(fn: Callable, *args, module: nn.Module):
                 m.num_batches_tracked.copy_(n)
 
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
+class _PlainSyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch, NCHW, on ranks on the
+    CPU. The forward sums each channel's x and x^2 in float32 over this
+    rank's batch and over all of them (one all-reduce of [sum, sum of
+    squares, count]); the backward all-reduces the two per-channel sums of
+    the gradient (dy, dy * x_hat) the same way."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        C = x.shape[1]
+        xf = x.float()
+        # the pixel count rides along in float32: exact below 2^24
+        stats = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // C)])
+        dist.all_reduce(stats)
+        n = stats[-1]
+        mean = stats[:C] / n
+        # flax's form: E[x^2] - E[x]^2, clamped at 0
+        var = (stats[C:2 * C] / n - mean.square()).clamp(min=0)
+        invstd = torch.rsqrt(var + eps)
+        y = ((xf - mean[:, None, None]) * (invstd * weight.float())[:, None,
+                                                                      None]
+             + bias.float()[:, None, None]).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        C = x.shape[1]
+        dyf = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        sums = torch.cat([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        dweight, dbias = sums[C:].clone(), sums[:C].clone()
+        dist.all_reduce(sums)
+        dx = (dyf - sums[:C, None, None] / n
+              - xhat * (sums[C:, None, None] / n)) * (
+                  invstd * weight.float())[:, None, None]
+        return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(
+            weight.dtype), None
+
+
+class _CudaSyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch on ranks on cards, with
+    the fused kernels of torch's SyncBatchNorm: each rank's per-channel
+    mean and 1/std (batch_norm_stats), one all-reduce of the ranks' rows
+    [mean, 1/std, count] (zero but for this rank's row, which gloo and
+    NCCL both take on a card), their merge (batch_norm_gather_stats_with_
+    counts) and the normalisation (batch_norm_elemt); the backward's two
+    per-channel sums (batch_norm_backward_reduce) all-reduced, then
+    batch_norm_backward_elemt."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, rank, world):
+        x = x.contiguous()
+        C = x.shape[1]
+        mean, invstd = torch.batch_norm_stats(x, eps)
+        rows = mean.new_zeros((world, 2 * C + 1), dtype=torch.float32)
+        rows[rank, :C] = mean
+        rows[rank, C:2 * C] = invstd
+        rows[rank, -1] = x.numel() // C
+        dist.all_reduce(rows)
+        counts = rows[:, -1]
+        # given running statistics the merge takes the counts in their
+        # dtype, float32 (given none, in x's: inexact in bf16); these are
+        # scratch ones, which it updates with momentum 0
+        scratch = rows.new_zeros((2, C))
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, rows[:, :C], rows[:, C:2 * C], scratch[0], scratch[1], 0.0,
+            eps, counts)
+        y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        var = (invstd.pow(-2) - eps).clamp(min=0)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        C = x.shape[1]
+        sum_dy, sum_dy_xmu, dweight, dbias = torch.batch_norm_backward_reduce(
+            dy.contiguous(), x, mean, invstd, weight, True, True, True)
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums)
+        dx = torch.batch_norm_backward_elemt(
+            dy.contiguous(), x, mean, invstd, weight.to(mean.dtype),
+            sums[:C], sums[C:], counts)
+        return dx, dweight, dbias, None, None, None
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over (N, H, W) of an NCHW map, the JAX package's
+    nn.layers.BatchNorm: in train mode the statistics of the global batch
+    (this rank's, merged over every rank of the process group) normalise
+    with the biased variance, and the running statistics move as flax's
+    do, momentum 0.1 (flax's 0.9) with the biased variance (torch's own
+    BatchNorm and SyncBatchNorm use the unbiased one). One process runs
+    torch's fused BatchNorm (native_batch_norm) and takes the variance
+    from its 1/std; ranks run `_CudaSyncBatchNorm` on cards and
+    `_PlainSyncBatchNorm` on the CPU. In eval mode torch's BatchNorm on
+    the running statistics. A subclass of nn.BatchNorm2d: the same
+    state_dict keys, and every isinstance check on norms holds."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        rank, world = rank_world()
+        if world > 1 and x.is_cuda:
+            y, mean, var = _CudaSyncBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, rank, world)
+        elif world > 1:
+            y, mean, var = _PlainSyncBatchNorm.apply(
+                x, self.weight, self.bias, self.eps)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
+        with torch.no_grad():
+            if var is None:
+                var = (invstd.pow(-2) - self.eps).clamp_(min=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class Scale(nn.Module):
@@ -206,7 +355,7 @@ class ConvNormAct(nn.Module):
                               groups=groups, bias=norm is None)
         self.norm_name = norm
         if norm == "bn":
-            self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+            self.bn = BatchNorm2d(out_ch, eps=1e-5)
         elif norm == "gn":
             self.gn = nn.GroupNorm(gn_groups, out_ch, eps=1e-5)
         elif norm is not None:

@@ -5,7 +5,7 @@
         --data-root DIR [--eval mIoU] [--aug-test [--aug-ratios R ...]]
         [--resize-dim H W] [--case ...] [--max-samples N] [--batch-size N]
         [--bf16 | --no-bf16] [--cfg-options k=v ...] [--device cuda|cpu]
-        [--out-dir DIR]
+        [--out-dir DIR] [--dist-backend nccl|gloo]
 
 <checkpoint> is a torch checkpoint file with the reference checkpoint's key
 names, loaded strictly: a bare state_dict, the reference's mmcv container
@@ -18,6 +18,13 @@ port's `data/` (which reads images with OpenCV); the model runs on `--device`,
 eval_single_scale_<stamp>.json (eval_multi_scale_... with --aug-test) into
 --out-dir: the summary metrics, the condition x case results for DELIVER,
 and the run's provenance.
+
+On N ranks under torchrun (`python -m torch.distributed.run
+--nproc_per_node=N -m multimodal_sam_adapter_torch.tools.test ...`) each
+rank evaluates its shard (indices rank::N) on its card, cuda:LOCAL_RANK,
+the histograms are summed over the ranks, and rank 0 prints the tables
+and writes the file; `--dist-backend` as for tools/train.py (nccl: a
+card a rank; gloo: on the CPU or ranks sharing a card).
 """
 from __future__ import annotations
 
@@ -51,13 +58,29 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--cfg-options", nargs="+", default=[])
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda: the rank's card, cuda:LOCAL_RANK; cpu: the "
+                        "plain PyTorch path")
     p.add_argument("--out-dir", default=".")
+    p.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
+                   help="the process group's backend under torchrun")
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    """Returns the path of the file written (None on ranks other than 0)."""
     args = parse_args(argv)
+    from ..parallel.ddp import close_distributed, init_distributed
+    from .train import entry_device
+
+    init_distributed(args.dist_backend)
+    try:
+        return _evaluate(args, entry_device(args.device))
+    finally:
+        close_distributed()
+
+
+def _evaluate(args, device):
     import torch
 
     from ..configs.registry import apply_overrides, get_config
@@ -66,11 +89,8 @@ def main(argv=None):
     from ..engine.evaluator import Evaluator
     from ..engine.inference import InferenceEngine
     from ..models.segmentor import build_segmentor
+    from ..parallel.ddp import is_main
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: the port's kernels need one "
-                         "(pass --device cpu for the plain PyTorch path)")
     cfg = get_config(args.config)
     if args.cfg_options:
         apply_overrides(cfg, dict(kv.split("=", 1)
@@ -103,6 +123,8 @@ def main(argv=None):
                      format_only=args.format_only,
                      show=args.show_dir is not None,
                      batch_size=args.batch_size, aug_cfg=aug_cfg)
+    if not is_main():
+        return None
     ev.print_tables(results)
     stamp = time.strftime("%Y%m%d_%H%M%S")
     scale_tag = "multi_scale" if args.aug_test else "single_scale"

@@ -7,17 +7,30 @@
         [--convnext-pretrained PTH] [--seed N] [--deterministic]
         [--max-epochs N] [--freeze-backbone] [--bf16 | --no-bf16]
         [--cfg-options k=v ...] [--device cuda|cpu]
+        [--dist-backend nccl|gloo]
 
-One process, `samples_per_gpu` samples a micro-batch, `grad_accum`
-micro-batches an update. The weights start as the JAX package draws them
-(models/init.py), from the seed, then take the pretrained files given.
-The train split is read by the port's `data/` (its image reading needs
-OpenCV) and transformed by `TrainPipeline` (which does not), the
+`samples_per_gpu` samples a micro-batch on each rank, `grad_accum`
+micro-batches an update. One process, or N data-parallel ranks under
+torchrun (parallel/ddp.py):
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m multimodal_sam_adapter_torch.tools.train <config> ...
+
+Each rank trains on its shard of the train split (the loader's
+`num_shards` / `shard_index`) on its own card, `cuda:LOCAL_RANK`; the
+gradients are averaged by DistributedDataParallel once an update and the
+BatchNorm statistics cover the global batch. `--dist-backend nccl` (the
+default) wants a card a rank; ranks that share a card, or run on the CPU
+(`--device cpu`), take `gloo`. The weights start as the JAX package draws
+them (models/init.py), from the seed, then take the pretrained files
+given. The train split is read by the port's `data/` (its image reading
+needs OpenCV) and transformed by `TrainPipeline` (which does not), the
 validation split through `TestPipeline` by one bf16 eval model whose
 weights and BatchNorm statistics are copied from the trained float32 ones
-at each evaluation. Checkpoints go to <work-dir>/ckpts/ (`step_<N>.pth`,
-`best.pth`), the log to <work-dir>/train_log.jsonl. Runs on `--device`,
-`cuda` by default, which fails when there is no card.
+at each evaluation, each rank evaluating its shard. Rank 0 writes the
+checkpoints to <work-dir>/ckpts/ (`step_<N>.pth`, `best.pth`) and the log
+to <work-dir>/train_log.jsonl. Runs on `--device`, `cuda` by default,
+which fails when there is no card.
 
 `build_runner` is the loop on dataset objects, for callers that hold
 their samples in memory.
@@ -63,8 +76,29 @@ def parse_args(argv=None):
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="dotted overrides, e.g. optimizer.base_lr=1e-4")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda: the rank's card, cuda:LOCAL_RANK; cpu: the "
+                        "plain PyTorch path")
+    p.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
+                   help="the process group's backend under torchrun: nccl "
+                        "for a card a rank, gloo for ranks on the CPU or "
+                        "sharing a card")
     return p.parse_args(argv)
+
+
+def entry_device(name: str):
+    """The entry's device: the CPU, or for `cuda` this rank's card
+    (cuda:LOCAL_RANK % count); no card exits with the reason."""
+    import torch
+
+    from ..parallel.ddp import rank_device
+
+    if torch.device(name).type != "cuda":
+        return torch.device(name)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: the port's kernels need one "
+                         "(pass --device cpu for the plain PyTorch path)")
+    return rank_device()
 
 
 def ckpt_meta(cfg: Dict, config_name: str, dataset, seed: int,
@@ -94,7 +128,9 @@ def build_runner(cfg: Dict, train_ds, work_dir: str, *, device="cuda",
     a raw sample dict): loader and `TrainPipeline` over `train_ds`, model
     and optimizer (JAX init from `seed`, then the pretrained files), the
     step (bf16 autocast when `bf16`), and, with `val_ds`, the eval hook
-    (`val_pipeline` None: the samples are already preprocessed)."""
+    (`val_pipeline` None: the samples are already preprocessed). Under a
+    process group: this rank's shard of `train_ds` and of `val_ds`, the
+    model in DistributedDataParallel for the step."""
     import torch
 
     from ..data.loader import DataLoader
@@ -106,15 +142,18 @@ def build_runner(cfg: Dict, train_ds, work_dir: str, *, device="cuda",
     from ..engine.runner import EarlyStopping, EpochRunner
     from ..engine.train import init_train_state, make_train_step
     from ..models.segmentor import build_segmentor
+    from ..parallel.ddp import rank_world, wrap_model
 
     device = torch.device(device)
+    rank, world = rank_world()
     m = cfg["model"]
     if m.get("head_type", "segformer") != "segformer":
         raise NotImplementedError(f"head {m['head_type']!r} is not ported")
     loader = DataLoader(
         train_ds, TrainPipeline(cfg["train_pipeline"],
                                 cfg["dataset"]["modalities_ch"]),
-        batch_size=cfg["data"]["samples_per_gpu"], shuffle=True, seed=seed)
+        batch_size=cfg["data"]["samples_per_gpu"], shuffle=True, seed=seed,
+        num_shards=world, shard_index=rank)
     opt_kwargs = dict(cfg["optimizer"], steps_per_epoch=max(len(loader), 1),
                       grad_accum_steps=cfg["data"]["grad_accum"],
                       freeze_backbone=freeze_backbone)
@@ -131,7 +170,7 @@ def build_runner(cfg: Dict, train_ds, work_dir: str, *, device="cuda",
     if pretrained:
         state.model.load_state_dict(merge_pretrained(
             state.model.state_dict(), pretrained), strict=True)
-    step = make_train_step(state.model, state.optimizer,
+    step = make_train_step(wrap_model(state.model), state.optimizer,
                            compute_dtype=torch.bfloat16 if bf16 else None)
 
     eval_fn = None
@@ -168,11 +207,10 @@ def main(argv=None):
 
     from ..configs.registry import apply_overrides, get_config
     from ..data import TestPipeline, build_dataset
+    from ..parallel.ddp import close_distributed, init_distributed
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: the port's kernels need one "
-                         "(pass --device cpu for the plain PyTorch path)")
+    init_distributed(args.dist_backend)
+    device = entry_device(args.device)
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -204,8 +242,11 @@ def main(argv=None):
         runner.resume(args.resume_from, auto=args.auto_resume)
     elif args.load_from:
         runner.load_weights(args.load_from)
-    runner.run()
-    runner.logger.close()
+    try:
+        runner.run()
+    finally:
+        runner.logger.close()
+        close_distributed()
     return runner
 
 

@@ -248,7 +248,8 @@ def test_the_scan_covers_the_train_modules():
                  "nn/layers.py", "ops/kernels.py", "models/init.py",
                  "data/loader.py", "data/native.py", "data/pipelines.py",
                  "engine/checkpoint.py", "engine/runner.py",
-                 "utils/profiling.py", "tools/train.py"):
+                 "utils/profiling.py", "tools/train.py",
+                 "parallel/__init__.py", "parallel/ddp.py"):
         assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
 
 

@@ -346,6 +346,33 @@ def test_loader_equals_jax(kw):
             assert g["meta"] == w["meta"]
 
 
+@pytest.mark.parametrize("n,batch_size,shards", [
+    (11, 2, 2), (7, 1, 2), (13, 3, 4), (8, 2, 2)])
+def test_loader_shards_yield_len_batches(n, batch_size, shards):
+    """With several shards and drop_last every shard yields len(loader)
+    batches (the shuffled order cut to whole global batches, as
+    DistributedSampler(drop_last=True) cuts it), so that data-parallel
+    ranks take the same number of steps; the shards are disjoint, and each
+    is the start of the JAX loader's shard (which may hold one batch
+    more)."""
+    seen = []
+    for k in range(shards):
+        kw = dict(batch_size=batch_size, shuffle=True, seed=2,
+                  num_shards=shards, shard_index=k)
+        tl = TLoader(_Indexed(n), _draw, **kw)
+        tl.set_epoch(1)
+        jl = JLoader(_Indexed(n), _draw, **kw)
+        jl.set_epoch(1)
+        got, want = list(tl), list(jl)
+        assert len(got) == len(tl) == n // (shards * batch_size)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["img"], w["img"])
+            assert g["meta"] == w["meta"]
+        seen += [m["i"] for b in got for m in b["meta"]]
+    assert len(seen) == len(set(seen)) == n // (shards * batch_size) * (
+        shards * batch_size)
+
+
 def test_loader_epochs_differ_and_repeat():
     loader = TLoader(_Indexed(9), _draw, batch_size=3, shuffle=True, seed=2)
     first = [b["meta"] for b in loader]

@@ -158,3 +158,135 @@ def test_updates_equal_optax(accum, micro, jax_shapes):
                     for n in named)
         assert worst <= 1e-6, (i, worst)
     assert opt.updates == micro // accum
+
+
+def test_factored_updates_equal_optax(jax_shapes):
+    """factored_second_moment: 5 updates of grad_accum 2 (10 micro-batch
+    gradients) with layer decay and weight decay; the port's parameters
+    equal those of the JAX package's optax chain (scale_by_factored_rms,
+    a bf16 ema) after every micro-batch, within rtol 1e-5 / atol 1e-6 (the
+    Adam test's atol), except where the two round a first moment to
+    neighbouring bf16 values: that element's next step moves by up to
+    lr x |u| x 2^-8 (~1e-5 here; the factored step u is not bounded by 1
+    as Adam's is). Such elements are allowed up to 1e-5 and at most 1e-4
+    of all elements. deliver_tiny has both kinds of parameter: ConvNeXt
+    stage 3-4 linears and downsamples factor (two axes >= 128), the rest
+    keep a full moment, and the neck's fused project_in weights factor as
+    JAX's two gate / value kernels."""
+    accum, micro = 2, 10
+    params = _random(jax_shapes, 0, 0.05)
+    grads = [_random(jax_shapes, 1 + i, 1e-3) for i in range(micro)]
+    tx = jopt.make_optimizer(params, grad_accum_steps=accum,
+                             factored_second_moment=True, **OPT)
+    state = tx.init(params)
+
+    @jax.jit
+    def update(g, state, params):
+        upd, state = tx.update(g, state, params)
+        return optax.apply_updates(params, upd), state
+
+    model = build_segmentor(dict(CFG, dropout_ratio=0.1), "cpu",
+                            state_dict=_to_port(params, jax_shapes))
+    opt = topt.make_optimizer(model, grad_accum_steps=accum,
+                              factored_second_moment=True, **OPT)
+    named = dict(model.named_parameters())
+    factored = [n for n, p in named.items()
+                if topt._factored_dims(tuple(p.shape)) is not None]
+    assert 0 < len(factored) < len(named)
+    for i, g in enumerate(grads):
+        params, state = update(g, state, params)
+        for name, t in _to_port(g, jax_shapes).items():
+            if name in named:
+                t = t.clone()
+                named[name].grad = (t if named[name].grad is None
+                                    else named[name].grad + t)
+        assert opt.step() == ((i + 1) % accum == 0)
+        want = _to_port(jax.tree.map(np.asarray, params), jax_shapes)
+        off = total = 0
+        for n in named:
+            got, w = named[n].detach().numpy(), want[n].numpy()
+            err = np.abs(got - w)
+            assert err.max() <= 1e-5, (i, n, err.max())
+            off += int((err > 1e-6 + 1e-5 * np.abs(w)).sum())
+            total += w.size
+        assert off <= 1e-4 * total, (i, off, total)
+    assert opt.updates == micro // accum
+    st = opt.state[named[factored[0]]]
+    assert set(st) == {"mu", "v_row", "v_col"}
+    assert st["mu"].dtype == torch.bfloat16
+
+
+def test_factored_state_resumes_bit_equal(jax_shapes):
+    """The factored moments go through state_dict / load_state_dict: 2
+    updates, a save and a load into a new optimizer partway through an
+    accumulation, 2 more micro-batches, equal bit for bit to the same
+    micro-batches run straight."""
+    params = _random(jax_shapes, 0, 0.05)
+    grads = [_random(jax_shapes, 1 + i, 1e-3) for i in range(5)]
+
+    def run(opt, model, gs):
+        named = dict(model.named_parameters())
+        for g in gs:
+            for name, t in _to_port(g, jax_shapes).items():
+                if name in named:
+                    named[name].grad = (t.clone() if named[name].grad is None
+                                        else named[name].grad + t)
+            opt.step()
+
+    def fresh():
+        model = build_segmentor(dict(CFG, dropout_ratio=0.1), "cpu",
+                                state_dict=_to_port(params, jax_shapes))
+        return model, topt.make_optimizer(model, grad_accum_steps=2,
+                                          factored_second_moment=True, **OPT)
+
+    straight_model, straight = fresh()
+    run(straight, straight_model, grads)
+    model, opt = fresh()
+    run(opt, model, grads[:3])
+    sd_model, sd_opt = model.state_dict(), opt.state_dict()
+    assert sd_opt["accum"]["mini_step"] == 1
+    model, opt = fresh()
+    model.load_state_dict(sd_model)
+    opt.load_state_dict(sd_opt)
+    run(opt, model, grads[3:])
+    for (n, p), q in zip(model.named_parameters(),
+                         straight_model.parameters()):
+        assert torch.equal(p, q), n
+
+
+def test_schedule_argument_replaces_the_poly_schedule(jax_shapes):
+    """make_optimizer(schedule=...): the learning rate comes from the
+    callable, as JAX's make_optimizer takes it."""
+    params = _random(jax_shapes, 0, 0.05)
+    model = build_segmentor(dict(CFG, dropout_ratio=0.1), "cpu",
+                            state_dict=_to_port(params, jax_shapes))
+    rates = []
+    opt = topt.make_optimizer(model, schedule=lambda k: rates.append(k) or 0.0,
+                              **OPT)
+    before = [p.detach().clone() for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert rates == [0]
+    # lr 0: every parameter stays
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), before))
+
+
+@pytest.mark.parametrize("mode,values", [
+    ("max", [0.1, 0.2, 0.2, 0.15, 0.19, 0.3, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1,
+             0.1]),
+    ("min", [1.0, 0.9, 0.95, 0.95, 0.95, 0.95, 0.8, 0.81, 0.82, 0.83, 0.84,
+             0.85, 0.86, 0.87]),
+])
+def test_reduce_on_plateau_equals_jax(mode, values):
+    got = topt.ReduceOnPlateau(mode=mode, factor=0.5, patience=2,
+                               min_factor=0.1)
+    want = jopt.ReduceOnPlateau(mode=mode, factor=0.5, patience=2,
+                                min_factor=0.1)
+    seen = []
+    for v in values:
+        f = got.update(v)
+        assert f == want.update(v)
+        assert (got.best, got.wait) == (want.best, want.wait)
+        seen.append(f)
+    assert seen[-1] < 1.0 and min(seen) >= 0.1

@@ -9,16 +9,22 @@ Every variable is drawn from a seeded numpy generator into the JAX tree
 and reaches the port through the weight bridge (engine/convert.py); the
 gradients come back through it too.
 
+The same global batch on two gloo ranks of the port, one sample each
+(tests/_torch_ddp_worker.py, its step through DistributedDataParallel),
+against JAX's single-process step on it (its loss and gradient, then its
+optax update, as the oracle of tests/test_multiprocess_train.py) with
+that test's tolerances: loss rtol 1e-5, parameters after the update rtol
+1e-3 / atol 2.5e-4; and the BatchNorm statistics rtol 1e-5 / atol 1e-7.
+
 Tolerances: loss rtol 1e-4; per parameter, max |g_port - g_jax| <= 1e-3 x
-max |g_jax| + 1e-6. BatchNorm: flax updates its running variance with the
-biased batch variance, torch (the reference's SyncBN) with the unbiased
-one, so the port's new variance is 0.9 old + n / (n - 1) (jax_new - 0.9
-old), n the pixels the norm saw (ROADMAP Queue 3); means and variances
-then within rtol 1e-5 / atol 1e-7.
+max |g_jax| + 1e-6. BatchNorm: the port's BatchNorm2d updates its running
+mean and variance as flax does (the biased batch variance), so both equal
+JAX's within rtol 1e-5 / atol 1e-7.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -26,8 +32,10 @@ from multimodal_sam_adapter_torch.configs.registry import get_config
 from multimodal_sam_adapter_torch.engine.convert import state_dict_from_jax
 from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
 from multimodal_sam_adapter_torch.nn.layers import set_dropout_key
+from multimodal_sam_adapter_tpu.engine import optim as jopt
 from multimodal_sam_adapter_tpu.models.segmentor import (
     EncoderDecoder as JaxEncoderDecoder)
+from tests import _torch_ddp_worker as ddp_worker
 from tests._torch_parity import randomize
 
 MODEL = get_config("deliver_tiny")["model"]
@@ -85,7 +93,8 @@ def both():
     for h in hooks:
         h.remove()
     return dict(loss=(got_loss.item(), float(loss)), logits=logits,
-                model=model, want=want_grads, old=old, pixels=seen)
+                model=model, want=want_grads, old=old, pixels=seen,
+                variables=variables, jax_grads=grads, img=img, gt=gt)
 
 
 def test_loss_matches_jax(both):
@@ -108,21 +117,62 @@ def test_every_parameter_gradient_matches_jax(both):
 
 
 def test_batchnorm_running_statistics_match_jax(both):
-    """Every train-mode BatchNorm updated its running mean as flax does,
-    and its running variance with torch's unbiased batch variance."""
+    """Every train-mode BatchNorm updated its running mean and its running
+    variance as flax does: the variance with the biased batch variance
+    (torch's own BatchNorm would take the unbiased one, n / (n - 1) times
+    larger, 1 / 7 at the stride-32 map below)."""
     model, want, old = both["model"], both["want"], both["old"]
     assert len(both["pixels"]) == 13   # neck 4, backbone 4, head 5
-    for name, n in both["pixels"].items():
-        mean = model.get_buffer(f"{name}.running_mean")
-        var = model.get_buffer(f"{name}.running_var")
-        np.testing.assert_allclose(
-            mean.numpy(), want[f"{name}.running_mean"].numpy(), rtol=1e-5,
-            atol=1e-7, err_msg=name)
-        prev = 0.9 * old[f"{name}.running_var"].numpy()
-        expect = prev + (want[f"{name}.running_var"].numpy() - prev) * (
-            n / (n - 1))
-        np.testing.assert_allclose(var.numpy(), expect, rtol=1e-5, atol=1e-7,
-                                   err_msg=name)
+    for name in both["pixels"]:
+        for stat in ("running_mean", "running_var"):
+            key = f"{name}.{stat}"
+            np.testing.assert_allclose(
+                model.get_buffer(key).numpy(), want[key].numpy(), rtol=1e-5,
+                atol=1e-7, err_msg=key)
+            assert not torch.equal(want[key], old[key]), key
         assert model.get_buffer(f"{name}.num_batches_tracked").item() == 1
     # deliver_tiny's stride-32 map: 2 x 2 pixels, batch 2
     assert both["pixels"]["backbone.norm4"] == 8
+
+
+@pytest.fixture(scope="module")
+def two_ranks(both, tmp_path_factory):
+    d = tmp_path_factory.mktemp("ddp_jax")
+    torch.save(state_dict_from_jax(both["variables"], IDX), d / "sd.pt")
+    torch.save({"img": torch.from_numpy(both["img"]),
+                "gt": torch.from_numpy(both["gt"]).long()}, d / "batch.pt")
+    return ddp_worker.spawn("jax", d, d / "sd.pt", d / "batch.pt")
+
+
+def test_two_ranks_match_the_jax_global_batch_step(both, two_ranks):
+    params = both["variables"]["params"]
+    tx = jopt.make_optimizer(params, grad_accum_steps=1, **ddp_worker.OPT)
+
+    @jax.jit
+    def update(g, p):
+        upd, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+
+    new = jax.tree.map(np.asarray, update(both["jax_grads"], params))
+    want = state_dict_from_jax(
+        {"params": new, "batch_stats": jax.tree.map(
+            np.asarray, both["variables"]["batch_stats"])}, IDX)
+    np.testing.assert_allclose(
+        np.mean([r["losses"][0] for r in two_ranks]), both["loss"][1],
+        rtol=1e-5)
+    for r in two_ranks:
+        (got,) = r["params"]
+        for name, t in got.items():
+            np.testing.assert_allclose(t.numpy(), want[name].numpy(),
+                                       rtol=1e-3, atol=2.5e-4, err_msg=name)
+        for name in both["pixels"]:
+            for stat in ("running_mean", "running_var"):
+                key = f"{name}.{stat}"
+                np.testing.assert_allclose(
+                    r["stats"][key].numpy(), both["want"][key].numpy(),
+                    rtol=1e-5, atol=1e-7, err_msg=key)
+        (grads,) = r["grads"]
+        for name, g in grads.items():
+            w = both["want"][name].numpy()
+            err = np.abs(g.numpy() - w).max()
+            assert err <= 1e-3 * np.abs(w).max() + 1e-6, (name, err)
