@@ -81,29 +81,48 @@ Phases, one line each; any failure exits non-zero before the last line:
    device busy ms and idle share, peak GiB, checkpoint GB and save / load
    seconds, eval seconds a sample, with the card's name and power limit.
 
-11. ddp: data parallelism. A 1-rank NCCL process group all-reduces once.
-   The float32 step of phase 9's setup (JAX init from the seed, with_cp,
-   drop path and dropout on, OHEM) in this process on a global batch of
-   two 1024^2 samples (grad_accum 1; then grad_accum 2, one update, on
-   four), then two rank processes of this script (`--ddp-rank`; gloo
-   sharing card 0 on a one-card machine, NCCL with a card each
-   otherwise), one sample a rank: (a) the step through
-   DistributedDataParallel: gradients and, after the grad_accum-2 update
-   (no_sync on its first micro-step), parameters bit-equal across the
-   ranks; the ranks' mean loss within 1e-3 relative of the one process's,
-   gradients and parameters within 1e-2 relative L2, BatchNorm running
-   statistics within 1e-3 relative; K1-K5 at 40 / 8 / 8 / 12 / 144 and K6
-   at 0 every micro-step; (b) the train entry's runner in bf16 on each
-   rank (4 raw 1042^2 samples a rank through the config's train pipeline
-   and the loader's shard, grad_accum 2, one epoch, a checkpoint written
-   by rank 0, an eval of one val sample a rank with the histograms summed
-   over the ranks): equal summaries, the summed histograms equal to the
-   sum of the ranks' own, parameters and BatchNorm statistics bit-equal
-   across ranks, and a resume on both ranks restoring the state saved.
-   Prints each rank's micro-step ms, one all-reduce's ms of the gradient
-   volume and peak GiB beside the card's name and power limit: not a
-   speed claim (two ranks sharing one card over gloo say nothing of NCCL
-   across cards).
+11. ddp: data parallelism, on max(2, cards) ranks: one a card over NCCL
+   where the machine has two or more cards, else two sharing card 0 over
+   gloo. A 1-rank NCCL process group all-reduces once. The float32 step
+   of phase 9's setup (JAX init from the seed, with_cp, drop path and
+   dropout on, OHEM) in this process on a global batch of one 1024^2
+   sample a rank (grad_accum 1; then grad_accum 2, one update, on twice
+   that), then the rank processes of this script (`--ddp-rank`), one
+   sample a rank: (a) the step through DistributedDataParallel: gradients
+   and, after the grad_accum-2 update (no_sync on its first micro-step),
+   parameters bit-equal across the ranks; the ranks' mean loss within
+   1e-3 relative of the one process's, gradients and parameters within
+   1e-2 relative L2, BatchNorm running statistics within 1e-3 relative;
+   K1-K5 at 40 / 8 / 8 / 12 / 144 and K6 at 0 every micro-step, one
+   micro-step more after the update (the optimizer's state in memory);
+   (b) the train entry's runner in bf16 on each rank (4 raw 1042^2
+   samples a rank through the config's train pipeline and the loader's
+   shard, grad_accum 2, one epoch, a checkpoint written by rank 0, an eval
+   of one val sample a rank with the histograms summed over the ranks):
+   equal summaries, the summed histograms equal to the sum of the ranks'
+   own, parameters and BatchNorm statistics bit-equal across ranks, and a
+   resume on every rank restoring the state saved; (c) part (a)'s step
+   with the optimizer's state sharded over the ranks by ZeRO
+   (parallel/zero.py): the update bit-equal to the unsharded optimizer's
+   from the same gradients, equal across ranks, within 1e-2 relative L2
+   of the one process's; the state gathered on rank 0 equal to the
+   unsharded optimizer's; each state tensor on one rank; the gathered
+   state, saved and loaded into ZeRO and into the unsharded optimizer,
+   restored bit for bit; (d) the full-width float32 forward with tensor
+   parallelism over the ranks (parallel/tp.py; data 1, model = the ranks)
+   against the unsharded kernel-path forward on the same weights, logits
+   within 1e-3 x max|logits|, and in bf16 through InferenceEngine.predict
+   the class maps agreeing on >= 98%; the launches of one forward
+   (K1 20, K2 4, K3 4, K4 6, K5 72, K6 1), K1 and K2 called with 16 /
+   ranks heads and K3 and K4 with 16 / ranks heads. Prints each rank's
+   micro-step ms with and without no_sync, three all-reduces' ms of the
+   gradient volume, peak GiB (the step's beside ZeRO's), ZeRO's state
+   GiB, TP's ms a forward and all-reduces, beside the card's name and
+   power limit. Two ranks sharing one card over gloo are a correctness
+   run, not a speed figure.
+
+`python3 chip_smoke.py --phase ddp` runs phases 1, 2 and 11 alone (the
+four-card run).
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -155,14 +174,17 @@ TRAIN_COS_SLACK = 0.02
 ENTRY_TRAIN_SAMPLES, ENTRY_VAL_SAMPLES, ENTRY_EPOCHS = 8, 2, 2
 ENTRY_RESUME_RTOL = 1e-3
 ENTRY_TIMED_STEPS = 14         # micro-steps on pre-made device batches
-# phase 11: data parallelism. Two ranks; the float32 step (part a) holds
-# one 1024^2 sample a rank, grad_accum 2 for its update; the bf16 runner
-# (part b) 4 raw samples a rank and 2 val samples in all
-DDP_RANKS, DDP_MICRO_STEPS = 2, 2
-DDP_RUNNER_SAMPLES, DDP_VAL_SAMPLES = 4, 2
+# phase 11: data parallelism on max(2, cards) ranks (`ddp_ranks`). The
+# float32 step (parts a and c) holds one 1024^2 sample a rank, grad_accum
+# 2 for its update, then one micro-step more with the optimizer's state in
+# memory; the bf16 runner (part b) 4 raw samples and 1 val sample a rank;
+# the tensor-parallel forward (part d) one 1024^2 input
+DDP_MICRO_STEPS = 2
+DDP_RUNNER_SAMPLES, DDP_VAL_SAMPLES = 4, 1
 DDP_LOSS_RTOL = DDP_STATS_RTOL = 1e-3
 DDP_STATS_ATOL = 1e-6
-DDP_TIMEOUT = 480              # seconds for both ranks together
+DDP_TIMEOUT = 720              # seconds for the ranks together
+TP_REQUESTS = 3                # timed bf16 TP forwards after a first
 # bf16: the gradients held one by one, where each kernel's backward lands
 TRAIN_WATCHED = (
     "backbone.blocks.0.attn.qkv.weight",          # K1's block
@@ -205,9 +227,8 @@ def phase_device(torch):
         capture_output=True, text=True, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
     line("device", name=repr(kind), count=torch.cuda.device_count())
-    smi = smi.splitlines()[0]
-    print(smi, flush=True)
-    return kind, smi
+    print(smi, flush=True)             # one line a card
+    return kind, smi.splitlines()[0]
 
 
 def phase_build(kernels):
@@ -1200,37 +1221,57 @@ def _rank_env(rank, world, port):
                 MASTER_PORT=str(port))
 
 
-def ddp_samples(torch):
-    """DDP_MICRO_STEPS x DDP_RANKS 1024^2 samples on the current card from
-    one seeded generator: every process draws the same ones. Micro-step i
-    of the global batch holds samples i * DDP_RANKS ... in rank order."""
+def ddp_ranks(torch):
+    """Phase 11's ranks: one a card where there are two or more, else two
+    sharing card 0."""
+    return max(2, torch.cuda.device_count())
+
+
+def ddp_samples(torch, world):
+    """DDP_MICRO_STEPS x world 1024^2 samples on the current card from one
+    seeded generator: every process draws the same ones. Micro-step i of
+    the global batch holds samples i * world ... in rank order."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     return [train_batch(torch, g, 25)
-            for _ in range(DDP_MICRO_STEPS * DDP_RANKS)]
+            for _ in range(DDP_MICRO_STEPS * world)]
 
 
-def step_run(torch, kernels, samples, accum, wrap, keep_grads=True):
-    """The float32 deliver_rgblidar train step (JAX init from SEED,
-    with_cp, drop path and dropout at the config's rates, OHEM) through
-    `make_train_step` on `samples` (a list of (img, gt)), the model
-    wrapped by `wrap`. Returns the losses, the gradients the optimizer saw
-    at the update, the parameters after it, the BatchNorm statistics, and
-    each micro-step's launches and CUDA-event ms."""
+def train_state(torch, accum):
+    """phase 11's float32 deliver_rgblidar train state: the JAX init from
+    SEED, with_cp, drop path and dropout at the config's rates, the
+    config's optimizer with grad_accum `accum`."""
     from multimodal_sam_adapter_torch.configs.registry import get_config
-    from multimodal_sam_adapter_torch.engine.train import (init_train_state,
-                                                           make_train_step)
+    from multimodal_sam_adapter_torch.engine.train import init_train_state
 
     cfg = get_config("deliver_rgblidar")
     state = init_train_state(cfg["model"], "cuda", seed=SEED, init="jax",
                              optimizer_kwargs=dict(cfg["optimizer"],
                                                    grad_accum_steps=accum))
     state.seed = SEED + 1
+    return state
+
+
+def step_run(torch, kernels, samples, accum, wrap, grads_on="cuda",
+             zero=False, keep_state=False):
+    """The float32 train step of `train_state` (OHEM) through
+    `make_train_step` on `samples` (a list of (img, gt)), the model
+    wrapped by `wrap`, the optimizer's state sharded over the ranks with
+    `zero` (parallel/zero.py). Returns the losses, the gradients the
+    optimizer saw at the update (copied to `grads_on`; None: not kept),
+    the parameters after it, the BatchNorm statistics, each micro-step's
+    launches and CUDA-event ms, and with `keep_state` the state itself."""
+    from multimodal_sam_adapter_torch.engine.train import make_train_step
+    from multimodal_sam_adapter_torch.parallel.zero import shard_optimizer
+
+    state = train_state(torch, accum)
+    if zero:
+        state.optimizer = shard_optimizer(state.optimizer)
     named = dict(state.model.named_parameters())
     out = dict(losses=[], grads=None, launches=[], ms=[])
 
     def before_update(optimizer, args, kwargs):
-        if keep_grads and optimizer.mini_step + 1 == accum:
-            out["grads"] = {n: p.grad.detach().clone()
+        if grads_on and optimizer.mini_step + 1 == accum:
+            out["grads"] = {n: p.grad.detach().to(grads_on, copy=True)
                             for n, p in named.items()}
 
     state.optimizer.register_step_pre_hook(before_update)
@@ -1250,6 +1291,8 @@ def step_run(torch, kernels, samples, accum, wrap, keep_grads=True):
     out["params"] = {n: p.detach().clone() for n, p in named.items()}
     out["stats"] = {n: b.clone() for n, b in state.model.named_buffers()
                     if n.endswith(("running_mean", "running_var"))}
+    if keep_state:
+        out["state"] = state
     del state, step, named
     gc.collect()
     return out
@@ -1283,11 +1326,12 @@ def phase_ddp_reference(torch, kernels, work):
             else:
                 os.environ[k] = v
 
-    samples = ddp_samples(torch)
+    world = ddp_ranks(torch)
+    samples = ddp_samples(torch, world)
     glob = [(torch.cat([img for img, _ in pair]),
              torch.cat([gt for _, gt in pair]))
-            for pair in (samples[i:i + DDP_RANKS]
-                         for i in range(0, len(samples), DDP_RANKS))]
+            for pair in (samples[i:i + world]
+                         for i in range(0, len(samples), world))]
     torch.cuda.reset_peak_memory_stats()
     one = step_run(torch, kernels, glob[:1], 1, lambda m: m)
     ref = dict(loss=one["losses"][0],
@@ -1296,12 +1340,12 @@ def phase_ddp_reference(torch, kernels, work):
     del one
     torch.cuda.empty_cache()
     accum = step_run(torch, kernels, glob, DDP_MICRO_STEPS, lambda m: m,
-                     keep_grads=False)
+                     grads_on=None)
     ref["params"] = _host_copy(torch, accum["params"])
     ref["accum_losses"] = accum["losses"]
     peak = torch.cuda.max_memory_allocated()
     line("ddp", reference="1 process, float32, global batch "
-         f"{DDP_RANKS}x1024x1024x6", loss=f"{ref['loss']:.6f}",
+         f"{world}x1024x1024x6", loss=f"{ref['loss']:.6f}",
          accum_losses=compact([round(v, 6) for v in accum["losses"]]),
          micro_step_ms=compact([round(v, 1) for v in accum["ms"]]),
          peak_mem_gib=f"{peak / 2**30:.3f}")
@@ -1312,11 +1356,12 @@ def phase_ddp_reference(torch, kernels, work):
 
 
 def phase_ddp(torch, kernels, smi):
-    """Phase 11: the reference in this process, then DDP_RANKS rank
+    """Phase 11: the reference in this process, then `ddp_ranks` rank
     processes of this script (gloo sharing card 0 on a one-card machine,
-    NCCL with a card each otherwise) run the step and the runner.
-    Returns rank 0's launches of one micro-step of the step through
-    DistributedDataParallel."""
+    NCCL with a card each otherwise) run the step, the runner, the step
+    with ZeRO and the tensor-parallel forward. Returns rank 0's launches
+    of one micro-step of the step through DistributedDataParallel
+    (`ddp`), of one with ZeRO (`zero`) and of one TP forward (`tp`)."""
     import shutil
     import tempfile
 
@@ -1324,14 +1369,15 @@ def phase_ddp(torch, kernels, smi):
     try:
         phase_ddp_reference(torch, kernels, work)
         cards = torch.cuda.device_count()
-        backend = "nccl" if cards >= DDP_RANKS else "gloo"
+        world = ddp_ranks(torch)
+        backend = "nccl" if cards >= world else "gloo"
         port = _free_port()
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
              str(work), backend],
-            env=dict(os.environ, **_rank_env(r, DDP_RANKS, port)),
+            env=dict(os.environ, **_rank_env(r, world, port)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(DDP_RANKS)]
+            for r in range(world)]
         logs, timed_out = [], False
         t0 = time.perf_counter()
         for p in procs:
@@ -1354,17 +1400,29 @@ def phase_ddp(torch, kernels, smi):
         check(all(p.returncode == 0 for p in procs),
               f"ddp: rank exit codes {[p.returncode for p in procs]}")
         results = [json.loads((work / f"rank{r}.json").read_text())
-                   for r in range(DDP_RANKS)]
-        line("ddp", ranks=DDP_RANKS, backend=backend, cards=cards,
-             shared_card=cards < DDP_RANKS,
+                   for r in range(world)]
+        shared = cards < world
+        line("ddp", ranks=world, backend=backend, cards=cards,
+             shared_card=shared,
              step_micro_step_ms=compact([r["step_ms"] for r in results]),
              all_reduce_ms=compact([r["all_reduce_ms"] for r in results]),
              all_reduce_gb=results[0]["all_reduce_gb"],
              runner_micro_step_ms=compact([r["runner_ms"] for r in results]),
              peak_mem_gib=compact([r["peak_gib"] for r in results]),
-             card=repr(smi), note="not a speed claim: ranks sharing one "
-             "card over gloo say nothing of NCCL across cards")
-        return results[0]["launches"]
+             step_peak_gib=compact([r["step_peak_gib"] for r in results]),
+             zero_peak_gib=compact([r["zero_peak_gib"] for r in results]),
+             zero_state_gib=compact([r["zero_state_gib"] for r in results]),
+             zero_micro_step_ms=compact([r["zero_ms"] for r in results]),
+             tp_ms_per_forward=compact([r["tp_ms"] for r in results]),
+             unsharded_ms_per_forward=compact([r["tp_whole_ms"]
+                                               for r in results]),
+             tp_all_reduces=results[0]["tp_all_reduces"],
+             card=repr(smi), note=(
+                 "not a speed claim: ranks sharing one card over gloo say "
+                 "nothing of NCCL across cards" if shared else
+                 "one card a rank over NCCL"))
+        return {part: results[0][f"{part}_launches"]
+                for part in ("ddp", "zero", "tp")}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1404,6 +1462,15 @@ def _rel_l2(torch, got, want):
     return (num / den) ** 0.5
 
 
+def _fresh_peak(torch):
+    """Free what nothing references any more and start a new peak count;
+    returns the GiB still allocated, the base under the coming peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
 def ddp_rank_step(torch, kernels, rank, world, work):
     """Part (a) on one rank: the float32 step on its sample of the global
     batch through DistributedDataParallel, against the reference."""
@@ -1413,7 +1480,7 @@ def ddp_rank_step(torch, kernels, rank, world, work):
     from multimodal_sam_adapter_torch.parallel import wrap_model
 
     ref = torch.load(work / "reference.pt", mmap=True, weights_only=True)
-    mine = ddp_samples(torch)[rank::world]
+    mine = ddp_samples(torch, world)[rank::world]
     torch.cuda.reset_peak_memory_stats()
     one = step_run(torch, kernels, mine[:1], 1, wrap_model)
     loss = (all_reduce_sum(torch.tensor(one["losses"][0], device="cuda"))
@@ -1442,44 +1509,52 @@ def ddp_rank_step(torch, kernels, rank, world, work):
     del one
     torch.cuda.empty_cache()
 
-    accum = step_run(torch, kernels, mine, DDP_MICRO_STEPS, wrap_model,
-                     keep_grads=False)
+    # the update, then one micro-step more (no_sync, the optimizer's
+    # state in memory): the peak part (c) is held against
+    peak = torch.cuda.max_memory_allocated()
+    base = _fresh_peak(torch)
+    accum = step_run(torch, kernels, mine + mine[:1], DDP_MICRO_STEPS,
+                     wrap_model, grads_on=None)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
     param_rel = _rel_l2(torch, accum["params"], ref["params"])
     same_params = _same_on_ranks(torch, accum["params"])
     launches_ok = all(c == PER_MICRO_STEP for c in accum["launches"])
     numel = sum(p.numel() for p in accum["params"].values())
     del accum["params"], ref
     torch.cuda.empty_cache()
-    # one all-reduce of the gradients' volume (float32), host clock
+    # all-reduces of the gradients' volume (float32), host clock
     buf = torch.ones(numel, device="cuda")
-    torch.cuda.synchronize()
-    dist.barrier()
-    t = time.perf_counter()
-    dist.all_reduce(buf)
-    torch.cuda.synchronize()
-    all_reduce_ms = (time.perf_counter() - t) * 1e3
-    ok_sum = buf[0].item() == world
+    all_reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        all_reduce_ms.append(round((time.perf_counter() - t) * 1e3, 1))
+    ok_sum = buf[0].item() == world ** 3
     del buf
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peak, torch.cuda.max_memory_allocated()) / 2**30
     line(f"ddp rank {rank}", part="a", grad_accum=DDP_MICRO_STEPS,
          updates=1, losses=compact([round(v, 6) for v in accum["losses"]]),
          param_rel_l2=f"{param_rel:.3e}",
          params_equal_across_ranks=same_params,
-         micro_step_ms_no_sync_then_sync=compact(
+         micro_step_ms_no_sync_sync_after_update=compact(
              [round(v, 1) for v in accum["ms"]]),
-         all_reduce_ms=f"{all_reduce_ms:.1f}",
+         all_reduce_ms=compact(all_reduce_ms),
          all_reduce_gb=f"{numel * 4 / 1e9:.3f}", peak_mem_gib=f"{peak:.3f}",
+         step_peak_mem_gib=f"{step_peak:.3f}", step_base_gib=f"{base:.3f}",
          launches_each_micro_step=launches_ok)
     _agree(torch, same_params and launches_ok and ok_sum
            and param_rel <= TRAIN_GRAD_REL_F32,
            f"ddp: rank {rank} after the update: parameters equal across "
            f"ranks {same_params}, {param_rel:.3e} from one process, "
            f"launches {accum['launches']}")
-    return dict(launches=accum["launches"][0],
+    return dict(ddp_launches=accum["launches"][0],
                 step_ms=[round(v, 1) for v in accum["ms"]],
-                all_reduce_ms=round(all_reduce_ms, 1),
+                all_reduce_ms=all_reduce_ms,
                 all_reduce_gb=round(numel * 4 / 1e9, 3),
-                peak_gib=round(peak, 3))
+                peak_gib=round(peak, 3), step_peak_gib=round(step_peak, 3))
 
 
 def ddp_rank_runner(torch, kernels, rank, world, work, device):
@@ -1499,7 +1574,7 @@ def ddp_rank_runner(torch, kernels, rank, world, work, device):
     cfg["data"]["grad_accum"] = 2
     cfg["runner"]["max_epochs"] = cfg["optimizer"]["max_epochs"] = 1
     train_ds = RawTrainSamples(DDP_RUNNER_SAMPLES * world, SEED)
-    val_ds = DeliverSamples(DDP_VAL_SAMPLES, SEED + 1)
+    val_ds = DeliverSamples(DDP_VAL_SAMPLES * world, SEED + 1)
     meta = ckpt_meta(cfg, "deliver_rgblidar", train_ds, SEED, False)
     out_dir = work / "runner"
     evals, saved, steps = [], {}, []
@@ -1558,7 +1633,7 @@ def ddp_rank_runner(torch, kernels, rank, world, work, device):
     names = sorted(os.listdir(out_dir / "ckpts"))
     want_names = ["best.pth", f"step_{len(steps)}.pth"]
     launches_ok = all(s["launches"] == PER_MICRO_STEP for s in steps)
-    eval_expect = {k: len(range(rank, DDP_VAL_SAMPLES, world)) * v
+    eval_expect = {k: DDP_VAL_SAMPLES * v
                    for k, v in PER_FORWARD.items()}
     line(f"ddp rank {rank}", part="b", dtype="bf16",
          samples=f"{len(steps)} of {len(train_ds)}",
@@ -1597,9 +1672,224 @@ def ddp_rank_runner(torch, kernels, rank, world, work, device):
     return dict(runner_ms=runner_ms, runner_peak_gib=round(peak, 3))
 
 
+def ddp_rank_zero(torch, kernels, rank, world, work):
+    """Part (c) on one rank: part (a)'s float32 step with the optimizer's
+    state sharded over the ranks (parallel/zero.py), against the unsharded
+    optimizer's update from the same gradients and against the one
+    process; the state gathered on rank 0, saved, and restored."""
+    import torch.distributed as dist
+
+    from multimodal_sam_adapter_torch.parallel import wrap_model
+    from multimodal_sam_adapter_torch.parallel.zero import shard_optimizer
+
+    ref = torch.load(work / "reference.pt", mmap=True, weights_only=True)
+    mine = ddp_samples(torch, world)[rank::world]
+    base = _fresh_peak(torch)
+    # the gradients of the update on the host: the peak is the step's
+    run = step_run(torch, kernels, mine + mine[:1], DDP_MICRO_STEPS,
+                   wrap_model, zero=True, keep_state=True, grads_on="cpu")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = run.pop("state")
+    zero = state.optimizer
+    state_gib = zero.state_bytes() / 2**30
+    param_rel = _rel_l2(torch, run["params"], ref["params"])
+    del ref, mine
+    same_params = _same_on_ranks(torch, run["params"])
+    launches_ok = all(c == PER_MICRO_STEP for c in run["launches"])
+    zero_ms = [round(v, 1) for v in run["ms"]]
+    zero_launches = run["launches"][0]
+    # the unsharded optimizer's update from the gradients ZeRO was handed
+    # (the backward's atomics make two runs' gradients differ in the last
+    # bits, so the update is held on the same gradients)
+    plain = train_state(torch, DDP_MICRO_STEPS)
+    for n, p in plain.model.named_parameters():
+        p.grad = run["grads"][n].to(p.device)
+    plain.optimizer.mini_step = DDP_MICRO_STEPS - 1
+    plain.optimizer.step()
+    same_update = all(torch.equal(p, run["params"][n])
+                      for n, p in plain.model.named_parameters())
+    del plain.model, run
+    zero.consolidate_state_dict()
+    same_state = True
+    if rank == 0:
+        full, want = zero.state_dict(), plain.optimizer.state_dict()
+        same_state = (_bit_equal(torch, full["state"], want["state"])
+                      is True and _bit_equal(torch, full["param_groups"],
+                                             want["param_groups"]) is True
+                      and full["accum"]["updates"] == 1)
+        torch.save(dict(model=state.model.state_dict(), optimizer=full,
+                        step=state.step), work / "zero.pt")
+        del full, want
+    dist.barrier()
+    del state, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a resume from the gathered state into ZeRO, and into the unsharded
+    # optimizer; each state tensor on exactly one rank
+    saved = torch.load(work / "zero.pt", mmap=True, weights_only=True)
+    resumed = train_state(torch, DDP_MICRO_STEPS)
+    resumed.optimizer = shard_optimizer(resumed.optimizer)
+    resumed.model.load_state_dict(saved["model"])
+    resumed.optimizer.load_state_dict(saved["optimizer"])
+    same_model = _bit_equal(torch, saved["model"],
+                            resumed.model.state_dict()) is True
+    params = resumed.optimizer._params()
+    held = torch.tensor([1 if resumed.optimizer.state[p] else 0
+                         for p in params], device="cuda")
+    dist.all_reduce(held)
+    once = bool((held == 1).all().item())
+    resumed.optimizer.consolidate_state_dict()
+    same_resume = True
+    if rank == 0:
+        same_resume = _bit_equal(torch, saved["optimizer"],
+                                 resumed.optimizer.state_dict()) is True
+        plain.optimizer.load_state_dict(saved["optimizer"])
+        same_resume &= _bit_equal(torch, saved["optimizer"],
+                                  plain.optimizer.state_dict()) is True
+    line(f"ddp rank {rank}", part="c", dtype="f32", zero_ranks=world,
+         grad_accum=DDP_MICRO_STEPS, updates=1,
+         update_equals_unsharded=same_update,
+         params_equal_across_ranks=same_params,
+         param_rel_l2=f"{param_rel:.3e}",
+         gathered_state_equals_unsharded=same_state,
+         state_tensors_on_one_rank=once, resume_bit_equal=same_model and (
+             same_resume), state_gib=f"{state_gib:.3f}",
+         peak_mem_gib=f"{peak:.3f}", base_gib=f"{base:.3f}",
+         micro_step_ms_no_sync_sync_after_update=compact(zero_ms))
+    del saved, resumed, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    _agree(torch, same_update and same_params and same_state and once
+           and same_model and same_resume and launches_ok
+           and param_rel <= TRAIN_GRAD_REL_F32,
+           f"zero: rank {rank}: update {same_update}, across ranks "
+           f"{same_params}, gathered {same_state}, held once {once}, resume "
+           f"{same_model}/{same_resume}, launches {launches_ok}, "
+           f"{param_rel:.3e} from one process")
+    return dict(zero_state_gib=round(state_gib, 3),
+                zero_peak_gib=round(peak, 3), zero_ms=zero_ms,
+                zero_launches=zero_launches)
+
+
+class HeadsSeen:
+    """Records the head counts the model hands K1-K4's wrappers, by
+    wrapping the modules' references to them (the wrappers still count
+    their launches)."""
+
+    def __init__(self):
+        import multimodal_sam_adapter_torch.models.sam_vit as vit
+        import multimodal_sam_adapter_torch.ops.msda as msda
+        from multimodal_sam_adapter_torch.ops.msda_cuda import kernel_name
+
+        # (module, name, position of the head count in the call)
+        self.targets = ((vit, "window_attention", 4),
+                        (vit, "flash_attention", 4),
+                        (msda, "ms_deform_attn", 5))
+        self.kernel_name = kernel_name
+        self.seen = {}
+
+    def __enter__(self):
+        self.real = [getattr(m, name) for m, name, _ in self.targets]
+        for (m, name, i), real in zip(self.targets, self.real):
+            def record(*args, _real=real, _name=name, _i=i):
+                key = (self.kernel_name(len(args[1]))
+                       if _name == "ms_deform_attn" else _name)
+                self.seen.setdefault(key, set()).add(args[_i])
+                return _real(*args)
+
+            setattr(m, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name, _), real in zip(self.targets, self.real):
+            setattr(m, name, real)
+
+
+def ddp_rank_tp(torch, kernels, rank, world):
+    """Part (d) on one rank: the flagship forward with tensor parallelism
+    over every rank (parallel/tp.py; data 1, model = the ranks) against
+    the unsharded kernel-path forward on the same weights: float32 logits,
+    bf16 class maps through InferenceEngine.predict('whole_dim'); the
+    launches of one forward and the head counts K1-K4 were called with."""
+    import copy
+
+    import torch.distributed as dist
+
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.engine.inference import InferenceEngine
+    from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
+    from multimodal_sam_adapter_torch.parallel.tp import (make_mesh,
+                                                          shard_segmentor_)
+
+    cfg = get_config("deliver_rgblidar")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_segmentor(cfg["model"], "cuda", generator=g)
+    x = torch.randn((1, 1024, 1024, 6), generator=g, device="cuda")
+    xb = x.to(torch.bfloat16)
+
+    def timed(engine):
+        """The first class map, then TP_REQUESTS forwards' host ms."""
+        first, times = engine.predict(xb), []
+        for _ in range(TP_REQUESTS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            engine.predict(xb)
+            times.append(round((time.perf_counter() - t) * 1e3, 1))
+        return first, times
+
+    with torch.no_grad():
+        want = model(x)
+    want_map, whole_times = timed(InferenceEngine(
+        copy.deepcopy(model).to(torch.bfloat16), cfg["test_cfg"]))
+    mesh = make_mesh(1, world)
+    shard_segmentor_(model, mesh)
+    with torch.no_grad(), HeadsSeen() as heads:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        mesh.all_reduces = 0
+        got = model(x)                            # the main path of (d)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        reduces = mesh.all_reduces
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    finite = torch.isfinite(got).all().item()
+    del got, want
+    engine = InferenceEngine(model.to(torch.bfloat16), cfg["test_cfg"])
+    pred, times = timed(engine)
+    agree = agreement(pred, want_map)
+    bb = cfg["model"]["backbone"]
+    share = {h: h // world if h % world == 0 else h
+             for h in (bb["num_heads"], bb["deform_num_heads"])}
+    want_heads = {"window_attention": {share[bb["num_heads"]]},
+                  "flash_attention": {share[bb["num_heads"]]},
+                  "msda_multi_level": {share[bb["deform_num_heads"]]},
+                  "msda_single_level": {share[bb["deform_num_heads"]]}}
+    line(f"ddp rank {rank}", part="d", tp=world, dtype="f32",
+         logits_max_abs=f"{scale:.4e}", max_abs_err=f"{err:.3e}",
+         tol=f"{FORWARD_RTOL_OF_MAX}*max|logits|",
+         heads=compact({k: sorted(v) for k, v in heads.seen.items()}),
+         all_reduces=reduces, launches=compact(counts))
+    line(f"ddp rank {rank}", part="d", tp=world, dtype="bf16",
+         class_agreement_with_unsharded=f"{agree:.4f}",
+         ms_per_forward=compact(times),
+         unsharded_ms_per_forward=compact(whole_times))
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _agree(torch, finite and err <= FORWARD_RTOL_OF_MAX * scale
+           and agree >= AGREE_MIN and counts == PER_FORWARD
+           and heads.seen == want_heads,
+           f"tp: rank {rank}: logits {err:.3e} of {scale:.3e}, class maps "
+           f"{agree:.4f}, launches {counts}, heads {heads.seen}")
+    return dict(tp_launches=counts, tp_ms=times, tp_whole_ms=whole_times,
+                tp_all_reduces=reduces)
+
+
 def ddp_rank_main(work, backend):
     """One rank of phase 11 (run by phase_ddp with torchrun's
-    environment): part (a), part (b), then its results to
+    environment): parts (a) to (d), then its results to
     <work>/rank<r>.json."""
     import torch
 
@@ -1623,15 +1913,30 @@ def ddp_rank_main(work, backend):
         out.update(ddp_rank_runner(torch, kernels, rank, world, work,
                                    device))
         out["peak_gib"] = max(out["peak_gib"], out.pop("runner_peak_gib"))
+        out.update(ddp_rank_zero(torch, kernels, rank, world, work))
+        out.update(ddp_rank_tp(torch, kernels, rank, world))
         (work / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         close_distributed()
 
 
-def main():
+def main(phases=None):
+    """Every phase; with `phases` == ["ddp"], phases 1, 2 and 11 alone
+    (the four-card run: phase 11 is what there is to see across cards)."""
     import torch
 
     kind, smi = phase_device(torch)
+    if phases == ["ddp"]:
+        from multimodal_sam_adapter_torch.ops import kernels
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_build(kernels)
+        phase_ddp(torch, kernels, smi)
+        print(json.dumps({"ok": True, "phases": phases, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import kernel_checks as kc
     from multimodal_sam_adapter_torch.configs.registry import get_config
@@ -1695,7 +2000,9 @@ def main():
         out.append(dict(row, launches=counts[row["name"]],
                         train_launches=train_counts[row["name"]],
                         train_entry_launches=entry_counts[row["name"]],
-                        ddp_launches=ddp_counts[row["name"]],
+                        ddp_launches=ddp_counts["ddp"][row["name"]],
+                        zero_launches=ddp_counts["zero"][row["name"]],
+                        tp_launches=ddp_counts["tp"][row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
@@ -1711,6 +2018,10 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ddp-rank"]:
             ddp_rank_main(*sys.argv[2:4])
+        elif sys.argv[1:] == ["--phase", "ddp"]:
+            main(["ddp"])
+        elif sys.argv[1:]:
+            raise SystemExit(f"usage: {sys.argv[0]} [--phase ddp]")
         else:
             main()
     except PhaseError as e:

@@ -123,7 +123,11 @@ MSDA_RAGGED = (("fmb", dict(grid=(50, 50))),
                ("batch3", dict(batch=3)),
                ("whole_1024x1824", dict(grid=(64, 114))),
                ("tiny", dict(grid=(4, 4), batch=2, heads=4, points=2,
-                             value_width=16)))
+                             value_width=16)),
+               # a tensor-parallel rank's share of the 16 heads of D = 32
+               # at 4 and at 2 model ranks (parallel/tp.py)
+               ("tp4_heads", dict(heads=4, value_width=4 * 32)),
+               ("tp2_heads", dict(heads=8, value_width=8 * 32)))
 # ragged shapes: the FMB (800^2) stage widths that fill no tile, and the
 # narrow widths of the test configurations (atto trunk, embed 32)
 CONVNEXT_RAGGED = ((25, 768), (50, 384), (16, 40))
@@ -144,9 +148,12 @@ PIXEL_SHUFFLE_RAGGED = (("fmb", dict(grid=(100, 100))),
 # K1 / K2 at the other test modes' shapes: FMB's 800^2 is a 50x50 token
 # grid (padded to 56 for the windows: 16 of them; the global grid's
 # 127-row pretrained tables resized to 99 rows), slide runs 3 crops a
-# forward (75 windows, B = 3)
+# forward (75 windows, B = 3); a tensor-parallel rank runs 4 of the 16
+# heads of 64 at 4 model ranks, 8 at 2 (parallel/tp.py)
 ATTENTION_RAGGED = (("fmb", dict(grid=50, table_rows=2 * GRID - 1)),
-                    ("batch3", dict(batch=3)))
+                    ("batch3", dict(batch=3)),
+                    ("tp4_heads", dict(heads=4)),
+                    ("tp2_heads", dict(heads=8)))
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): device memory
 # bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
@@ -363,27 +370,29 @@ def cases(name: str, dtype: torch.dtype, seed: int = 0):
 
 def attention_case(name: str, dtype: torch.dtype, g: torch.Generator,
                    batch: int = 1, grid: int = GRID,
-                   table_rows: Optional[int] = None
+                   table_rows: Optional[int] = None, heads: int = HEADS
                    ) -> Tuple[Callable, tuple]:
-    """K1 or K2 for `batch` images of a grid x grid token map of ViT-L:
-    K1 over its 14x14 windows (the map zero-padded to whole windows), K2
-    over the whole grid with rel-pos tables of `table_rows` rows (default
-    2 * grid - 1, the grid's own; other lengths are resized)."""
+    """K1 or K2 for `batch` images of a grid x grid token map of ViT-L
+    (`heads` of its heads of 64): K1 over its 14x14 windows (the map
+    zero-padded to whole windows), K2 over the whole grid with rel-pos
+    tables of `table_rows` rows (default 2 * grid - 1, the grid's own;
+    other lengths are resized)."""
     d = EMBED // HEADS
+    width = 3 * heads * d
     if name == "window_attention":
         windows = batch * (-(-grid // WINDOW)) ** 2  # 64 padded to 70: 25
-        qkv = _randn((windows, WINDOW * WINDOW, 3 * EMBED), g, dtype)
+        qkv = _randn((windows, WINDOW * WINDOW, width), g, dtype)
         rows, hw = 2 * WINDOW - 1, WINDOW
         fn = window_attention
     elif name == "flash_attention":
-        qkv = _randn((batch, grid * grid, 3 * EMBED), g, dtype)
+        qkv = _randn((batch, grid * grid, width), g, dtype)
         rows, hw = table_rows or 2 * grid - 1, (grid, grid)
         fn = flash_attention
     else:
         raise KeyError(name)
     rph = _randn((rows, d), g, dtype, 0.5)
     rpw = _randn((rows, d), g, dtype, 0.5)
-    return fn, (qkv, rph, rpw, hw, HEADS, d ** -0.5)
+    return fn, (qkv, rph, rpw, hw, heads, d ** -0.5)
 
 
 def _attention_geometry(args) -> Tuple[int, int, int, Tuple[int, int]]:

@@ -249,6 +249,12 @@ class LayerDecayAdamW(torch.optim.Optimizer):
         if self.mini_step < self.grad_accum_steps:
             return False
         self.mini_step = 0
+        self._update()
+        return True
+
+    def _update(self) -> None:
+        """One update of every parameter this process owns from its
+        gradient (the mean over the accumulation), which is then cleared."""
         lr = self.schedule(self.updates)
         self.updates += 1
         b1, b2 = self.betas
@@ -266,6 +272,9 @@ class LayerDecayAdamW(torch.optim.Optimizer):
             scale, wd = group["lr_scale"], group["weight_decay"]
             halves = group.get("factored_halves", False)
             for p in group["params"]:
+                if not self.owns(p):
+                    p.grad = None
+                    continue
                 g = (p.grad.float() if p.grad is not None
                      else torch.zeros_like(p, dtype=torch.float32))
                 if self.grad_accum_steps > 1:
@@ -293,6 +302,10 @@ class LayerDecayAdamW(torch.optim.Optimizer):
                 p.sub_(u * scale * lr)
                 st["mu"] = mu.to(torch.bfloat16)
                 p.grad = None
+
+    def owns(self, p: torch.Tensor) -> bool:
+        """Whether this process updates `p` and keeps its state: every
+        parameter here; one rank's share under ZeRO (parallel/zero.py)."""
         return True
 
     def _params(self) -> List[torch.Tensor]:

@@ -136,22 +136,33 @@ def local(batch, rank: int, world: int):
 
 
 def train_run(model_cfg, batches, accum: int, state_dict=None,
-              opt=OPT, seed: int = 1):
+              opt=OPT, seed: int = 1, zero: bool = False, resume=None):
     """`make_train_step` on `batches` from the seeded random init (or
     `state_dict`), the model wrapped for data parallelism when there is a
-    process group. Returns the losses, the gradients the optimizer saw at
-    each update, the parameters after each update and the BatchNorm
-    statistics after the last micro-step."""
+    process group, the optimizer sharded by ZeRO with `zero`, the model,
+    optimizer and step loaded from `resume` (a `saved` entry) first.
+    Returns the losses, the gradients the optimizer saw at each update,
+    the parameters after each update, the BatchNorm statistics after the
+    last micro-step and, after each update, `saved`: the model's and the
+    optimizer's state (a ZeRO optimizer's consolidated on rank 0, None on
+    the others) and the step."""
     from multimodal_sam_adapter_torch.engine.train import (init_train_state,
                                                            make_train_step)
     from multimodal_sam_adapter_torch.parallel import wrap_model
+    from multimodal_sam_adapter_torch.parallel.zero import shard_optimizer
 
     state = init_train_state(model_cfg, "cpu", seed=0, state_dict=state_dict,
                              init="random", optimizer_kwargs=dict(
                                  opt, grad_accum_steps=accum))
     state.seed = seed
+    if zero:
+        state.optimizer = shard_optimizer(state.optimizer)
+    if resume is not None:
+        state.model.load_state_dict(resume["model"])
+        state.optimizer.load_state_dict(resume["optimizer"])
+        state.step = resume["step"]
     named = dict(state.model.named_parameters())
-    grads, params, losses = [], [], []
+    grads, params, losses, saved = [], [], [], []
 
     def before_step(optimizer, args, kwargs):
         if optimizer.mini_step + 1 == accum:      # this call updates
@@ -164,8 +175,36 @@ def train_run(model_cfg, batches, accum: int, state_dict=None,
         losses.append(out["loss"].item())
         if out["updated"]:
             params.append({n: p.detach().clone() for n, p in named.items()})
+            saved.append(snapshot(state))
     stats = {n: b.clone() for n, b in state.model.named_buffers()}
-    return dict(losses=losses, grads=grads, params=params, stats=stats)
+    out = dict(losses=losses, grads=grads, params=params, stats=stats,
+               saved=saved)
+    if zero:
+        opt = state.optimizer
+        out["owner"] = opt.owner
+        out["sizes"] = [p.numel() for p in opt._params()]
+        out["held"] = [i for i, p in enumerate(opt._params())
+                       if opt.state[p]]
+    return out
+
+
+def snapshot(state):
+    """The model's state, the optimizer's (a ZeRO optimizer's gathered on
+    rank 0 by every rank; None on the others) and the step, as copies."""
+    import copy
+
+    from multimodal_sam_adapter_torch.parallel import rank_world
+
+    opt = state.optimizer
+    if hasattr(opt, "consolidate_state_dict"):
+        opt.consolidate_state_dict()
+        if rank_world()[0] != 0:
+            opt = None
+    return dict(model={k: v.clone() for k, v in
+                       state.model.state_dict().items()},
+                optimizer=None if opt is None else copy.deepcopy(
+                    opt.state_dict()),
+                step=state.step)
 
 
 class EvalSamples:
@@ -363,8 +402,65 @@ def task_runner(rank, world, work):
                          resumed.state.optimizer.updates))
 
 
+def task_zero(rank, world, work, state_dict_path, batch_path):
+    """ZeRO over the ranks (tests/test_torch_parallel_zero.py): the DDP
+    step, grad_accum 2, two updates, with the unsharded and the sharded
+    optimizer; resumes after the first update from each one's saved state
+    into the other; the sharded step from the JAX parity weights on this
+    rank's half of the JAX batch (grad_accum 1, dropout 0)."""
+    import torch.distributed as dist
+
+    model = tiny_model()
+    batches = [local(b, rank, world) for b in global_batches(4)]
+    out = {"plain": train_run(model, batches, 2),
+           "zero": train_run(model, batches, 2, zero=True)}
+    for src, dst in (("zero", "plain"), ("plain", "zero")):
+        path = Path(work) / f"{src}_update1.pt"
+        if rank == 0:
+            torch.save(out[src]["saved"][0], path)
+        dist.barrier()
+        out[f"{src}_to_{dst}"] = train_run(
+            model, batches[2:], 2, zero=dst == "zero",
+            resume=torch.load(path, weights_only=True))
+    sd = torch.load(state_dict_path, weights_only=True)
+    batch = torch.load(batch_path, weights_only=True)
+    out["jax"] = train_run(tiny_model(dropout=False),
+                           [local(batch, rank, world)], 1, state_dict=sd,
+                           zero=True)
+    return out
+
+
+def task_tp(rank, world, state_dict_path, x_path):
+    """The tensor-parallel eval forward (tests/test_torch_parallel_tp.py)
+    of deliver_tiny from the JAX parity weights, on a (data 2, model 2)
+    and a (data 1, model 4) mesh: this rank's rows of the batch, the
+    logits, the all-reduces, the head counts the kernels were called
+    with."""
+    from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
+    from multimodal_sam_adapter_torch.parallel.tp import (make_mesh,
+                                                          shard_segmentor_)
+
+    sd = torch.load(state_dict_path, weights_only=True)
+    x = torch.load(x_path, weights_only=True)
+    out = {}
+    for data, model in ((2, 2), (1, 4)):
+        mesh = make_mesh(data, model)
+        net = shard_segmentor_(build_segmentor(tiny_model(dropout=False),
+                                               "cpu", state_dict=sd), mesh)
+        with torch.no_grad():
+            logits = net(local({"x": x}, mesh.data_rank, data)["x"])
+        bb = net.backbone
+        out[(data, model)] = dict(
+            logits=logits, all_reduces=mesh.all_reduces,
+            data_rank=mesh.data_rank, model_rank=mesh.model_rank,
+            heads=dict(vit=bb.blocks[0].attn.num_heads,
+                       injector=bb.interactions[0].injector.attn.n_heads,
+                       extractor=bb.interactions[0].extractor.attn.n_heads))
+    return out
+
+
 TASKS = {"step": task_step, "jax": task_jax, "eval": task_eval,
-         "runner": task_runner}
+         "runner": task_runner, "zero": task_zero, "tp": task_tp}
 
 
 def main(argv):

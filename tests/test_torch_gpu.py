@@ -107,8 +107,9 @@ def test_pixel_shuffle_refuses_operands_tma_cannot_take():
 @pytest.mark.parametrize("name", ["flash_attention", "window_attention"])
 def test_attention_kernels_at_fmb_and_batch3_shapes(name, label, kw, dtype):
     """ViT-L's K1 and K2 at FMB's 800^2 (16 windows; a 50x50 global grid,
-    two rows of 50 keys to a tile, the 127-row tables resized to 99) and
-    at slide's batch of 3 crops (75 windows; B = 3)."""
+    two rows of 50 keys to a tile, the 127-row tables resized to 99), at
+    slide's batch of 3 crops (75 windows; B = 3) and at a tensor-parallel
+    rank's 4 and 8 heads."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(3)
     fn, args = attention_case(name, DTYPES[dtype], g, **kw)
@@ -123,8 +124,9 @@ def test_msda_at_fmb_batch3_nonsquare_and_tiny_shapes(name, label, kw,
                                                       dtype):
     """K3 and K4 at FMB's 800^2 (a 50x50 grid), at slide's batch of 3
     crops (the reference points of one image broadcast), at `whole` mode's
-    1024x1824 (a 64x114 grid, levels 128x228 / 64x114 / 32x57) and at
-    deliver_tiny's widths (D = 4, P = 2: 8-byte loads)."""
+    1024x1824 (a 64x114 grid, levels 128x228 / 64x114 / 32x57), at
+    deliver_tiny's widths (D = 4, P = 2: 8-byte loads) and at a
+    tensor-parallel rank's 4 and 8 heads."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(4)
     fn, args = msda_case(name, DTYPES[dtype], g, **kw)

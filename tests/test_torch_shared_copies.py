@@ -249,7 +249,8 @@ def test_the_scan_covers_the_train_modules():
                  "data/loader.py", "data/native.py", "data/pipelines.py",
                  "engine/checkpoint.py", "engine/runner.py",
                  "utils/profiling.py", "tools/train.py",
-                 "parallel/__init__.py", "parallel/ddp.py"):
+                 "parallel/__init__.py", "parallel/ddp.py",
+                 "parallel/zero.py", "parallel/tp.py"):
         assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
 
 
