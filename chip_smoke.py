@@ -120,9 +120,38 @@ Phases, one line each; any failure exits non-zero before the last line:
    GiB, TP's ms a forward and all-reduces, beside the card's name and
    power limit. Two ranks sharing one card over gloo are a correctness
    run, not a speed figure.
+12. files: the entries on image files, at full width, in a temporary
+   directory removed at the end. (a) The port's PNG writer
+   (data/image_io.py; the row filters None, Sub, Up, Average and Paeth in
+   turn) writes a DeLiVER tree (two 1024^2 samples in each split: BGR,
+   3-channel LiDAR, 25-class labels with 5% ignored) and a MUSES tree
+   (one 1920x1080 clear/day frame, its LiDAR .npz, 19-class labels).
+   (b) Every file decodes through the host core to the array written, and
+   the numpy twin unfilters the first 64 scanlines of each as the core
+   does. (c) tools/test.py on the DeLiVER tree (deliver_rgblidar, bf16,
+   seed weights saved as a torch checkpoint, --show-dir): K1-K6 at
+   20 / 4 / 4 / 6 / 72 / 1 a forward; the histograms bit-equal to
+   `Evaluator.run` over the same decoded samples held in memory, with the
+   same engine; every blend decodes to `show_result`'s array. (d)
+   tools/infer_test.py on the MUSES tree (muses_rgblidar, 'slide', seed
+   weights): the labelTrainIds PNG decodes to the class map
+   `InferenceEngine.predict` gives on the test pipeline's output. (e)
+   tools/train.py on the DeLiVER tree, one epoch of two micro-steps,
+   grad_accum 2: one update, finite losses, K1-K5 at 40 / 8 / 8 / 12 / 144
+   and K6 at 0 each micro-step. (f) apis.inference_segmentor on one
+   DeLiVER file gives (c)'s class map. Prints ms to decode and to encode a
+   1024^2 PNG, the test pipeline's ms a sample from files, eval ms/img of
+   the entry's run (its model's first forwards and the blends included)
+   and of the same engine again from the files and from memory, the
+   micro-step's ms through the file loader, and how far the API's class
+   map moves when its batch axis has numpy's stride 0 (the agreement),
+   beside the card's name and power limit.
+   Phase 10 also times the train loader and pipeline with the rescale
+   through F.interpolate (the train side's earlier resize), beside
+   data/resize.py's.
 
 `python3 chip_smoke.py --phase ddp` runs phases 1, 2 and 11 alone (the
-four-card run).
+four-card run); `--phase files` runs phases 1, 2 and 12.
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -185,6 +214,13 @@ DDP_LOSS_RTOL = DDP_STATS_RTOL = 1e-3
 DDP_STATS_ATOL = 1e-6
 DDP_TIMEOUT = 720              # seconds for the ranks together
 TP_REQUESTS = 3                # timed bf16 TP forwards after a first
+# phase 12: the DeLiVER samples on file (their conditions and cases route
+# the report), the MUSES record, the PNG row filters taken in turn, the
+# scanlines the numpy twin unfilters beside the host core
+FILES_DELIVER_STEMS = ("sun_test_0", "motionblur_rain_test_1")
+FILES_MUSES_RECORD = "REC0001"
+FILES_FILTERS = (0, 1, 2, 3, 4)
+FILES_SLAB_ROWS = 64
 # bf16: the gradients held one by one, where each kernel's backward lands
 TRAIN_WATCHED = (
     "backbone.blocks.0.attn.qkv.weight",          # K1's block
@@ -994,6 +1030,28 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
+@contextlib.contextmanager
+def _interpolate_rescale(torch):
+    """TrainPipeline's image rescale through F.interpolate (bilinear, half-
+    pixel centres: within a few hundredths of OpenCV's) while entered, for
+    a timing beside data/resize.py's."""
+    from multimodal_sam_adapter_torch.data import pipelines
+
+    def interpolate(img, size_wh, native=True):
+        t = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+        out = torch.nn.functional.interpolate(
+            t.permute(2, 0, 1)[None], size=(size_wh[1], size_wh[0]),
+            mode="bilinear", align_corners=False)
+        return out[0].permute(1, 2, 0).contiguous().numpy()
+
+    real = pipelines.resize_bilinear_hwc
+    pipelines.resize_bilinear_hwc = interpolate
+    try:
+        yield
+    finally:
+        pipelines.resize_bilinear_hwc = real
+
+
 def phase_train_entry(torch, kernels, smi):
     """The train entry's loop at full width (phase 10). Returns the
     launches of its run: every micro-step and every eval forward."""
@@ -1170,6 +1228,18 @@ def phase_train_entry(torch, kernels, smi):
         for i in range(2):
             pipe(train_ds[i], np.random.default_rng(i))
         pipe_ms = (time.perf_counter() - t) * 1e3 / 2
+        # the same with the train side's earlier rescale (F.interpolate,
+        # not OpenCV's arithmetic), in this call: the loader before and
+        # after the resize that equals the JAX package's
+        with _interpolate_rescale(torch):
+            loader.set_epoch(7)
+            t = time.perf_counter()
+            n = sum(len(b["img"]) for b in loader)
+            loader_ms_before = (time.perf_counter() - t) * 1e3 / n
+            t = time.perf_counter()
+            for i in range(2):
+                pipe(train_ds[i], np.random.default_rng(i))
+            pipe_ms_before = (time.perf_counter() - t) * 1e3 / 2
         trace = Path(__file__).resolve().parent / "build" / "profiles" / (
             "train_entry_micro_step.json")
         res = profile_calls(lambda: step(resumed.state, batches[1]), 1,
@@ -1188,8 +1258,10 @@ def phase_train_entry(torch, kernels, smi):
              micro_step_ms_device_batches_all=compact(
                  [round(x * 1e3, 1) for x in device_batches]),
              loader_ms_per_sample=f"{loader_ms:.1f}",
+             loader_ms_per_sample_interpolate=f"{loader_ms_before:.1f}",
              loader_threads=loader.num_threads,
              pipeline_ms_per_sample=f"{pipe_ms:.1f}",
+             pipeline_ms_per_sample_interpolate=f"{pipe_ms_before:.1f}",
              busy_ms=f"{res['busy_ms']:.2f}",
              unprofiled_ms=f"{res['unprofiled_ms']:.2f}",
              idle_share=f"{res['idle_share']:.3f}",
@@ -1920,19 +1992,362 @@ def ddp_rank_main(work, backend):
         close_distributed()
 
 
+# --------------------------------------------------------------- phase 12
+
+def _scene(rng, gt, palette, noise):
+    """A uint8 BGR picture of a label map: each class's palette colour
+    (ignored pixels black) plus uniform noise of +-`noise` levels."""
+    pal = np.concatenate([np.asarray(palette, np.int16)[:, ::-1],
+                          np.zeros((256 - len(palette), 3), np.int16)])
+    img = pal[gt] + rng.integers(-noise, noise + 1, gt.shape + (3,))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _blocks(rng, hw, classes, block):
+    """A (h, w) uint8 label map of `classes` in block x block squares, with
+    ~5% of its pixels ignored (255)."""
+    h, w = hw
+    cells = rng.integers(0, classes, (-(-h // block), -(-w // block)),
+                         dtype=np.uint8)
+    gt = np.ascontiguousarray(
+        np.repeat(np.repeat(cells, block, 0), block, 1)[:h, :w])
+    gt[rng.random(hw) < 0.05] = 255
+    return gt
+
+
+def write_file_trees(root, rng):
+    """Phase 12 (a): a DeLiVER tree (two 1024^2 samples in each split:
+    BGR, 3-channel LiDAR, 25-class labels) and a MUSES tree (one 1920x1080
+    clear/day frame, its LiDAR .npz and 19-class labels), the PNGs written
+    by the port's writer with the row filters taken in turn. Returns
+    {path: array written}."""
+    from multimodal_sam_adapter_torch.data import image_io
+    from multimodal_sam_adapter_torch.data.datasets import (CITYSCAPES_PALETTE,
+                                                            DELIVER_PALETTE)
+
+    written = {}
+
+    def png(path, arr):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        image_io.imwrite(path, arr, filters=FILES_FILTERS)
+        written[path] = arr
+
+    deliver = os.path.join(root, "deliver", "samples")
+    for stem in FILES_DELIVER_STEMS:
+        gt = _blocks(rng, (1024, 1024), 25, 64)
+        arrays = {"images": _scene(rng, gt, DELIVER_PALETTE, 12),
+                  "lidar": _scene(rng, gt[::-1], DELIVER_PALETTE, 30),
+                  "annotations": gt}
+        for split in ("test", "training", "validation"):
+            for d, arr in arrays.items():
+                suffix = {"images": "rgb", "lidar": "lidar",
+                          "annotations": "semantic"}[d]
+                png(os.path.join(deliver, d, split,
+                                 f"{stem}_{suffix}_front.png"), arr)
+    muses = os.path.join(root, "muses")
+    gt = _blocks(rng, (1080, 1920), 19, 60)
+    png(os.path.join(muses, "frame_camera", "test", "clear", "day",
+                     f"{FILES_MUSES_RECORD}_frame_camera.png"),
+        _scene(rng, gt, CITYSCAPES_PALETTE, 12))
+    png(os.path.join(muses, "gt_semantic", "test", "clear", "day",
+                     f"{FILES_MUSES_RECORD}_gt_labelTrainIds.png"), gt)
+    lidar = os.path.join(muses, "projected_to_rgb", "lidar", "test", "clear",
+                         "day")
+    os.makedirs(lidar, exist_ok=True)
+    np.savez(os.path.join(lidar, f"{FILES_MUSES_RECORD}_lidar.npz"),
+             rng.standard_normal((1080, 1920, 3)).astype(np.float32) * 5)
+    return written, os.path.join(root, "deliver"), muses
+
+
+def check_decoded(written):
+    """Phase 12 (b): every PNG decodes, through the host core, to the array
+    written; the numpy twin unfilters the first FILES_SLAB_ROWS scanlines
+    of each file as the core does. Returns (decode ms, encode ms) of a
+    1024^2 BGR file (medians of 3)."""
+    from multimodal_sam_adapter_torch.data import image_io
+
+    for path, arr in written.items():
+        got = image_io.imread(path, "unchanged")
+        check(got.dtype == arr.dtype and np.array_equal(got, arr),
+              f"files: {path} decodes to another array")
+        with open(path, "rb") as f:
+            scan, bpp = image_io.png_scanlines(f.read(), path)
+        slab = scan[:FILES_SLAB_ROWS]
+        check(set(np.unique(scan[:, 0]).tolist()) == set(FILES_FILTERS),
+              f"files: {path} does not use every row filter")
+        check(np.array_equal(image_io.unfilter_native(slab, bpp),
+                             image_io.unfilter_numpy(slab, bpp)),
+              f"files: the numpy twin unfilters {path} otherwise")
+    path = next(p for p, a in written.items() if a.shape == (1024, 1024, 3))
+    dec, enc = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        image_io.imread(path)
+        dec.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        image_io.encode_png(written[path])
+        enc.append(time.perf_counter() - t)
+    return _median(dec) * 1e3, _median(enc) * 1e3
+
+
+class _Recorder:
+    """While entered, records every `Evaluator.run` (the evaluator, its
+    results, ms a sample) and every `dump_prediction` call (the blend's
+    path, raw image and class map)."""
+
+    def __init__(self, torch):
+        from multimodal_sam_adapter_torch.engine import evaluator, visualize
+
+        self.torch, self.ev_cls, self.vis = torch, evaluator.Evaluator, (
+            visualize)
+        self.runs, self.shown = [], {}
+
+    def __enter__(self):
+        run, dump, torch = self.ev_cls.run, self.vis.dump_prediction, (
+            self.torch)
+        self.saved = run, dump
+
+        def recorded_run(ev, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run(ev, *a, **kw)
+            torch.cuda.synchronize()
+            self.runs.append(dict(ev=ev, res=res, ms=(
+                time.perf_counter() - t) * 1e3 / len(ev.dataset)))
+            return res
+
+        def recorded_dump(out_dir, cond, case, name, img, pred, *a):
+            path = os.path.join(out_dir, "prediction", cond or "all",
+                                case or "ordinary", name)
+            self.shown[name] = (path, np.asarray(img), np.asarray(pred))
+            return dump(out_dir, cond, case, name, img, pred, *a)
+
+        self.ev_cls.run, self.vis.dump_prediction = recorded_run, (
+            recorded_dump)
+        return self
+
+    def __exit__(self, *exc):
+        self.ev_cls.run, self.vis.dump_prediction = self.saved
+
+
+class _ListDataset:
+    """Samples held in memory, with a file dataset's tables."""
+
+    def __init__(self, samples, like):
+        self.samples = samples
+        for k in ("CLASSES", "PALETTE", "CONDITIONS", "CASES"):
+            setattr(self, k, getattr(like, k))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        s = self.samples[i]
+        return dict(s, meta=dict(s["meta"]))
+
+
+def phase_files(torch, kernels, smi):
+    """Phase 12: the entries on image files at full width. Returns the
+    launches of (c), the eval entry's run from files."""
+    import shutil
+    import tempfile
+
+    from multimodal_sam_adapter_torch import apis
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.data import TestPipeline, image_io
+    from multimodal_sam_adapter_torch.engine.evaluator import (Evaluator,
+                                                               _pad_for_model)
+    from multimodal_sam_adapter_torch.engine.visualize import show_result
+    from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
+    from multimodal_sam_adapter_torch.tools import infer_test
+    from multimodal_sam_adapter_torch.tools import test as test_tool
+    from multimodal_sam_adapter_torch.tools import train as train_tool
+
+    work = tempfile.mkdtemp(prefix="msa_files_")
+    try:
+        # (a) and (b)
+        written, deliver, muses = write_file_trees(
+            work, np.random.default_rng(SEED + 12))
+        dec_ms, enc_ms = check_decoded(written)
+
+        # (c) tools/test.py on the DeLiVER tree, seed weights in a file
+        cfg = get_config("deliver_rgblidar")
+        ckpt = os.path.join(work, "deliver_rgblidar_seed.pth")
+        model = build_segmentor(cfg["model"], "cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(SEED))
+        torch.save(model.state_dict(), ckpt)
+        del model
+        show = os.path.join(work, "show")
+        with _Recorder(torch) as rec:
+            kernels.reset_launches()
+            out_json = test_tool.main([                # the main path
+                "deliver_rgblidar", ckpt, "--data-root", deliver,
+                "--show-dir", show, "--out-dir", work])
+            counts = dict(kernels.LAUNCHES)
+            ev = rec.runs[0]["ev"]
+            ds = ev.dataset
+            samples = [ds[i] for i in range(len(ds))]
+            pipe = TestPipeline(cfg["test_pipeline"],
+                                cfg["dataset"]["modalities_ch"])
+            t = time.perf_counter()
+            for i in range(len(ds)):
+                pipe(ds[i])
+            pipe_ms = (time.perf_counter() - t) * 1e3 / len(ds)
+            # the same engine again, warm and without blends: from the
+            # files, then from the decoded samples held in memory
+            for data in (ds, _ListDataset(samples, ds)):
+                mem = Evaluator(ev.engine, data, ev.num_classes,
+                                case_aware=True).run(pipeline=pipe,
+                                                     progress_every=0)
+        files_res, entry_ms = rec.runs[0]["res"], rec.runs[0]["ms"]
+        files_ms, mem_ms = rec.runs[1]["ms"], rec.runs[2]["ms"]
+        expect = {k: len(ds) * v for k, v in PER_FORWARD.items()}
+        check(counts == expect,
+              f"files: test entry launches {counts} != {expect}")
+        for key in ("flat", "nested"):
+            check(np.array_equal(files_res["payload"][key],
+                                 mem["payload"][key]),
+                  f"files: the {key} histograms from files differ from "
+                  f"the in-memory run's")
+        check(os.path.dirname(out_json) == show
+              and len(rec.shown) == len(ds),
+              f"files: {out_json}, {len(rec.shown)} blends")
+        for name, (path, raw, pred) in rec.shown.items():
+            check(np.array_equal(image_io.imread(path, "unchanged"),
+                                 show_result(raw, pred, ds.PALETTE)),
+                  f"files: {path} does not decode to show_result's blend")
+
+        # (f) the single-image API on one file: (c)'s class map
+        info = ds.infos[0]
+        handle = apis.init_segmentor("deliver_rgblidar", ckpt, bf16=True)
+        kernels.reset_launches()
+        api_pred = apis.inference_segmentor(handle, info["img"],
+                                            info["mod"][0])
+        api_counts = dict(kernels.LAUNCHES)
+        want = rec.shown[info["stem"] + ".png"][2]
+        # the same input with numpy's batch axis (stride 0) in place of
+        # torch's: the bf16 class map it gives beside the API's
+        arr, _ = apis.inference.prepare_input(handle, info["img"],
+                                              info["mod"][0])
+        stride0 = handle.engine.predict(torch.from_numpy(arr[None]))[0]
+        stride0_agree = float((stride0.numpy() == api_pred).mean())
+        check(np.array_equal(api_pred, want) and api_counts == PER_FORWARD,
+              f"files: inference_segmentor's class map agrees with the test "
+              f"entry's on {(api_pred == want).mean():.6f}, launches "
+              f"{api_counts}")
+        del handle, ev, mem, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) tools/infer_test.py on the MUSES tree, 'slide'
+        out = os.path.join(work, "muses_out")
+        with _Recorder(torch) as rec:
+            kernels.reset_launches()
+            infer_test.main(["muses_rgblidar", "random", "--data-root",
+                             muses, "--show-dir", out])
+            m_counts = dict(kernels.LAUNCHES)
+            ev = rec.runs[0]["ev"]
+        check(set(rec.runs[0]["res"]) == {"files"}
+              and m_counts == PER_FORWARD,
+              f"files: infer_test results {set(rec.runs[0]['res'])}, "
+              f"launches {m_counts}")
+        mcfg = get_config("muses_rgblidar")
+        sample = TestPipeline(mcfg["test_pipeline"],
+                              mcfg["dataset"]["modalities_ch"])(
+            ev.dataset[0])
+        img, valid = _pad_for_model(sample["img"])
+        pred = ev.engine.predict(torch.from_numpy(img)[None],
+                                 valid_hw=valid)[0].numpy()
+        sub = os.path.join(out, "labelTrainIds", f"{FILES_MUSES_RECORD}.png")
+        got = image_io.imread(sub, "unchanged")
+        check(got.shape == (1024, 1820) and np.array_equal(
+            got, pred.astype(np.uint8)),
+              f"files: {sub} does not decode to the predicted class map")
+        del ev, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) tools/train.py on the DeLiVER tree: one epoch, one update
+        steps = []
+        real_build = train_tool.build_runner
+
+        def instrumented(*a, **kw):
+            runner = real_build(*a, **kw)
+            step = runner.train_step
+
+            def timed_step(state, batch):
+                before = dict(kernels.LAUNCHES)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = step(state, batch)
+                torch.cuda.synchronize()
+                steps.append(dict(start=t, end=time.perf_counter(),
+                                  loss=res["loss"].item(), launches={
+                                      k: kernels.LAUNCHES[k] - before[k]
+                                      for k in before}))
+                return res
+
+            runner.train_step = timed_step
+            return runner
+
+        train_tool.build_runner = instrumented
+        try:
+            kernels.reset_launches()
+            runner = train_tool.main([
+                "deliver_rgblidar", "--data-root", deliver, "--work-dir",
+                os.path.join(work, "train"), "--max-epochs", "1",
+                "--cfg-options", "data.grad_accum=2"])
+        finally:
+            train_tool.build_runner = real_build
+        losses = [s["loss"] for s in steps]
+        check(len(steps) == 2 and runner.state.optimizer.updates == 1
+              and all(np.isfinite(v) for v in losses)
+              and all(s["launches"] == PER_MICRO_STEP for s in steps),
+              f"files: train entry micro-steps {len(steps)}, updates "
+              f"{runner.state.optimizer.updates}, losses {losses}, "
+              f"launches {[s['launches'] for s in steps]}")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        line("files", deliver=f"{len(FILES_DELIVER_STEMS)}x1024x1024 a split",
+             muses="1920x1080", pngs=len(written),
+             filters=compact(list(FILES_FILTERS)),
+             decode_ms_1024=f"{dec_ms:.2f}", encode_ms_1024=f"{enc_ms:.2f}",
+             test_pipeline_ms_per_sample=f"{pipe_ms:.2f}",
+             eval_ms_per_img_entry=f"{entry_ms:.2f}",
+             eval_ms_per_img_files=f"{files_ms:.2f}",
+             eval_ms_per_img_memory=f"{mem_ms:.2f}",
+             histograms_bit_equal=True, blends=len(ds),
+             batch_stride0_agreement=f"{stride0_agree:.6f}",
+             launches=compact(counts), api_launches=compact(api_counts),
+             infer_test_launches=compact(m_counts),
+             train_losses=compact([round(v, 5) for v in losses]),
+             train_launches=compact([s["launches"] for s in steps]),
+             micro_step_ms=compact([round((s["end"] - s["start"]) * 1e3, 1)
+                                    for s in steps]),
+             micro_step_ms_file_loader=(
+                 f"{(steps[1]['end'] - steps[0]['end']) * 1e3:.1f}"),
+             card=repr(smi))
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(phases=None):
     """Every phase; with `phases` == ["ddp"], phases 1, 2 and 11 alone
-    (the four-card run: phase 11 is what there is to see across cards)."""
+    (the four-card run: phase 11 is what there is to see across cards);
+    with ["files"], phases 1, 2 and 12."""
     import torch
 
     kind, smi = phase_device(torch)
-    if phases == ["ddp"]:
+    if phases in (["ddp"], ["files"]):
         from multimodal_sam_adapter_torch.ops import kernels
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_build(kernels)
-        phase_ddp(torch, kernels, smi)
+        (phase_ddp if phases == ["ddp"] else phase_files)(torch, kernels, smi)
         print(json.dumps({"ok": True, "phases": phases, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -1989,6 +2404,9 @@ def main(phases=None):
     gc.collect()
     torch.cuda.empty_cache()
     ddp_counts = phase_ddp(torch, kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    files_counts = phase_files(torch, kernels, smi)
 
     out = []
     for row in rows:
@@ -2003,6 +2421,7 @@ def main(phases=None):
                         ddp_launches=ddp_counts["ddp"][row["name"]],
                         zero_launches=ddp_counts["zero"][row["name"]],
                         tp_launches=ddp_counts["tp"][row["name"]],
+                        files_launches=files_counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
@@ -2018,10 +2437,11 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ddp-rank"]:
             ddp_rank_main(*sys.argv[2:4])
-        elif sys.argv[1:] == ["--phase", "ddp"]:
-            main(["ddp"])
+        elif sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["ddp"],
+                                                             ["files"]):
+            main(sys.argv[2:])
         elif sys.argv[1:]:
-            raise SystemExit(f"usage: {sys.argv[0]} [--phase ddp]")
+            raise SystemExit(f"usage: {sys.argv[0]} [--phase ddp|files]")
         else:
             main()
     except PhaseError as e:

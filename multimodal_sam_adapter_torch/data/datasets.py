@@ -6,19 +6,20 @@ split files, MUSES case/condition directory scheme, class names + palettes,
 and the per-image `pre_eval` -> intersect/union contract the evaluator
 consumes.
 
-The port's own copy of multimodal_sam_adapter_tpu/data/datasets.py, less
-MUSES's `format_results` (benchmark-server PNGs, not ported with
-`format_only`). Images are read with OpenCV when a sample is loaded, not
-when this module is imported.
+The port's own copy of multimodal_sam_adapter_tpu/data/datasets.py. Images
+are read by data/image_io.py when a sample is loaded; MUSES's
+`format_results` writes the benchmark server's PNGs with its `imwrite`.
 """
 from __future__ import annotations
 
 import os
 import os.path as osp
+import re
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .image_io import imwrite
 from .pipelines import load_annotation, load_multimodal_image
 
 # ---------------------------------------------------------------------------
@@ -301,6 +302,21 @@ class MUSES(SegDataset):
     def condition_of(self, stem):
         p = stem.split("_")
         return p[1] if len(p) > 1 and p[1] in self.CONDITIONS else None
+
+    def format_results(self, preds, stems, out_dir: str) -> List[str]:
+        """Write uint8 labelTrainIds PNGs with the benchmark server's names
+        (reference MUSES.py:127-138: drop '_frame_camera', strip everything
+        before the trailing 'R<...>' record id); returns the paths."""
+        os.makedirs(osp.join(out_dir, "labelTrainIds"), exist_ok=True)
+        files = []
+        for pred, stem in zip(preds, stems):
+            name = osp.basename(stem).replace("/", "_") + ".png"
+            name = name.replace("_frame_camera", "")
+            name = re.sub(r".*_R", "R", name)
+            fn = osp.join(out_dir, "labelTrainIds", name)
+            imwrite(fn, np.asarray(pred).astype(np.uint8))
+            files.append(fn)
+        return files
 
 
 _DATASETS = {

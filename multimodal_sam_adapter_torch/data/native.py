@@ -1,10 +1,12 @@
-"""The host pipeline's native normalize + pad core (csrc/host/
-pipeline_core.cpp), bound with ctypes: the counterpart of
-multimodal_sam_adapter_tpu/data/native.py.
+"""The host pipeline's native core, bound with ctypes: the normalize + pad
+of csrc/host/pipeline_core.cpp (the counterpart of
+multimodal_sam_adapter_tpu/data/native.py) and the PNG unfilter and
+float32 resize of csrc/host/image_core.cpp (used by data/image_io.py and
+data/resize.py, which hold their numpy twins).
 
 The library is built with g++ at first use into `build/host/<hash>/` at the
-root of the checkout, keyed by a hash of the source, the flags and the host
-(machine and node name), so it is never one built for another CPU. A
+root of the checkout, keyed by a hash of the sources, the flags and the
+host (machine and node name), so it is never one built for another CPU. A
 failed build raises with the compiler's message: callers that want the
 numpy path ask for it (`TrainPipeline(..., native=False)`).
 `normalize_pad_numpy` is the same arithmetic in numpy, bit-equal to the
@@ -26,6 +28,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / (
     "pipeline_core.cpp")
+IMAGE_SOURCE = SOURCE.with_name("image_core.cpp")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "host"
 LIB_NAME = "libmsa_pipeline.so"
 CXX_FLAGS = ("-O3", "-funroll-loops", "-ffp-contract=off", "-fPIC",
@@ -43,6 +46,7 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 def build_dir() -> Path:
     h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(IMAGE_SOURCE.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(f"{platform.machine()} {platform.node()}".encode())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -59,11 +63,13 @@ def load_native() -> ctypes.CDLL:
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
             cxx = os.environ.get("CXX", "g++")
-            r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE),
+                                str(IMAGE_SOURCE)],
                                capture_output=True, text=True)
             if r.returncode != 0:
-                raise RuntimeError(f"building {SOURCE.name} with {cxx} "
-                                   f"failed:\n{r.stderr}")
+                raise RuntimeError(
+                    f"building {SOURCE.name} and {IMAGE_SOURCE.name} with "
+                    f"{cxx} failed:\n{r.stderr}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         lib.msa_normalize_pad.argtypes = [
@@ -74,6 +80,14 @@ def load_native() -> ctypes.CDLL:
             _U8P, ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_int,
             ctypes.c_int, ctypes.c_uint8]
         lib.msa_normalize_pad.restype = lib.msa_pad_label.restype = None
+        lib.msa_png_unfilter.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, _U8P]
+        lib.msa_png_unfilter.restype = ctypes.c_int
+        lib.msa_resize_f32.argtypes = [
+            _FP, ctypes.c_int, ctypes.c_int,
+            _FP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _IP, _IP, _FP, _FP, _IP, _IP, _FP, _FP, _U8P, ctypes.c_int]
+        lib.msa_resize_f32.restype = None
         _LIB = lib
         return lib
 

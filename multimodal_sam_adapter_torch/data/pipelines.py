@@ -5,23 +5,24 @@ A sample is a dict
   {'img': (H, W, C) float32 (OpenCV BGR channel order, like the reference),
    'gt': (H, W) uint8 or None, 'meta': {...}}
 
+Nothing here uses OpenCV, which the card's machine lacks: images and
+labels are read by data/image_io.py (PNG, equal to cv2.imread) and resized
+by data/resize.py (equal to cv2.resize), so the samples equal the JAX
+package's bit for bit (tests/test_torch_shared_copies.py,
+tests/test_torch_train_data.py).
+
 Test side: the multimodal image and annotation loaders, the mmcv-style
 deterministic resize, the per-modality normalisation, the bottom/right pad
-and `TestPipeline`. They read and resize with OpenCV, imported inside the
-functions that use it, so importing this module does not need it.
-Normalise and pad run in numpy (the JAX package may fuse them in its
-native core, within 1e-5 of the numpy path).
+and `TestPipeline`. Normalise and pad run in numpy (the JAX package may
+fuse them in its native core, within 1e-5 of the numpy path).
 
 Train side: `TrainPipeline` and its transforms (Gaussian blur, random-ratio
 resize, random crop with the cat_max_ratio re-crop loop, flip, photometric
 distortion, then normalise + pad through the native core of data/native.py
-or its numpy twin). They need no OpenCV, which the card's machine lacks:
+or its numpy twin):
 
-- bilinear resize of the float image: `F.interpolate(..., 'bilinear',
-  align_corners=False)` on CPU tensors (within a few hundredths of
-  OpenCV's INTER_LINEAR on the 0-255 scale, tests/test_torch_train_data.py);
-- nearest resize of the labels: OpenCV's INTER_NEAREST index rule,
-  src = min(floor(dst * (1 / (dst_size / src_size))), src_size - 1);
+- bilinear resize of the float image and nearest resize of the labels:
+  data/resize.py, as on the test side;
 - the 8-bit BGR <-> HSV round trip of the photometric step: OpenCV's own
   arithmetic (the fixed-point BGR2HSV tables; HSV2BGR in float32 with its
   fused multiply-adds, the cast truncating in the 32-pixel SIMD blocks of
@@ -39,29 +40,16 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from . import native as _native
-
-
-def _cv2():
-    import cv2
-
-    return cv2
-
+from .image_io import imread
+from .resize import resize as imresize
+from .resize import resize_channels, resize_nearest
 
 # ---------------------------------------------------------------------------
-# mmcv-compatible resize helpers
+# mmcv-compatible resize helpers (`imresize` is data/resize.py's `resize`:
+# size is (w, h))
 # ---------------------------------------------------------------------------
-
-def imresize(img: np.ndarray, size_wh: Tuple[int, int],
-             interpolation: str = "bilinear") -> np.ndarray:
-    """mmcv.imresize: size is (w, h)."""
-    cv2 = _cv2()
-    flags = {"nearest": cv2.INTER_NEAREST, "bilinear": cv2.INTER_LINEAR,
-             "bicubic": cv2.INTER_CUBIC}[interpolation]
-    return cv2.resize(img, size_wh, interpolation=flags)
 
 
 def rescale_size(old_wh: Tuple[int, int], scale) -> Tuple[int, int]:
@@ -80,15 +68,6 @@ def imrescale(img: np.ndarray, scale, interpolation: str = "bilinear"):
     return imresize(img, new_wh, interpolation)
 
 
-def _resize_multichannel(img: np.ndarray, size_wh, interpolation="bilinear"):
-    """OpenCV resizes at most 4 channels at once: resize in chunks of 4."""
-    chunks = []
-    for s in range(0, img.shape[2], 4):
-        o = imresize(img[..., s: s + 4], size_wh, interpolation)
-        chunks.append(o[..., None] if o.ndim == 2 else o)
-    return chunks[0] if len(chunks) == 1 else np.concatenate(chunks, axis=2)
-
-
 # ---------------------------------------------------------------------------
 # loading
 # ---------------------------------------------------------------------------
@@ -98,18 +77,17 @@ def load_multimodal_image(img_path: str, mod_paths: Sequence[str],
     """RGB image (OpenCV color, BGR) + aux modalities concatenated along
     channels. 1-channel aux image files are tiled to 3 channels; a .npz aux
     (MUSES) loads 'arr_0' and expands a 2-D map to one channel."""
-    cv2 = _cv2()
-    parts = [cv2.imread(img_path, cv2.IMREAD_COLOR).astype(np.float32)]
+    parts = [imread(img_path, "color").astype(np.float32)]
     for path, ch in zip(mod_paths, mod_channels):
         if path.endswith(".npz"):
             with np.load(path) as z:
                 m = z["arr_0"] if "arr_0" in z else z[list(z.keys())[0]]
             m = np.asarray(m, np.float32)
         elif ch == 1:
-            m = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+            m = imread(path, "unchanged")
             m = np.tile(np.asarray(m, np.float32)[:, :, None], (1, 1, 3))
         else:
-            m = cv2.imread(path, cv2.IMREAD_COLOR).astype(np.float32)
+            m = imread(path, "color").astype(np.float32)
         if m.ndim == 2:
             m = m[:, :, None]
         parts.append(m.astype(np.float32))
@@ -117,8 +95,7 @@ def load_multimodal_image(img_path: str, mod_paths: Sequence[str],
 
 
 def load_annotation(path: str, reduce_zero_label: bool = False) -> np.ndarray:
-    cv2 = _cv2()
-    gt = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    gt = imread(path, "unchanged")
     if gt.ndim == 3:
         gt = gt[:, :, 0]
     gt = gt.astype(np.int32)
@@ -139,9 +116,9 @@ def resize_multimodal(sample: Dict, img_scale, keep_ratio: bool = True,
     img = sample["img"]
     if keep_ratio:
         new_wh = rescale_size((img.shape[1], img.shape[0]), img_scale)
-        img = _resize_multichannel(img, new_wh, "bilinear")
+        img = resize_channels(img, new_wh)
     else:
-        img = _resize_multichannel(img, img_scale, "bilinear")
+        img = resize_channels(img, img_scale)
     sample["img"] = img
     if sample.get("gt") is not None:
         scale = seg_scale or img_scale
@@ -245,40 +222,26 @@ class TestPipeline:
 
 
 # ---------------------------------------------------------------------------
-# train-time transforms (no OpenCV)
+# train-time transforms
 # ---------------------------------------------------------------------------
 
-def resize_bilinear_hwc(img: np.ndarray, size_wh: Tuple[int, int]
-                        ) -> np.ndarray:
-    """(H, W, C) float image -> (h, w, C) float32, bilinear with half-pixel
-    centres (OpenCV's INTER_LINEAR without its fixed-point rounding)."""
-    w, h = size_wh
-    t = torch.from_numpy(np.ascontiguousarray(img, np.float32))
-    out = F.interpolate(t.permute(2, 0, 1)[None], size=(h, w),
-                        mode="bilinear", align_corners=False)
-    return out[0].permute(1, 2, 0).contiguous().numpy()
-
-
-def _nearest_index(src: int, dst: int) -> np.ndarray:
-    return np.minimum(np.floor(np.arange(dst) * (1.0 / (dst / src))),
-                      src - 1).astype(np.int64)
-
-
-def resize_nearest(lab: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
-    """OpenCV INTER_NEAREST on a label map."""
-    w, h = size_wh
-    return lab[_nearest_index(lab.shape[0], h)[:, None],
-               _nearest_index(lab.shape[1], w)[None, :]]
+def resize_bilinear_hwc(img: np.ndarray, size_wh: Tuple[int, int],
+                        native: bool = True) -> np.ndarray:
+    """(H, W, C) image -> (h, w, C) float32: the JAX package's
+    `_resize_multichannel` (cv2 INTER_LINEAR in chunks of 4 channels), bit
+    for bit; `native=False` resizes with data/resize.py's numpy twin."""
+    return resize_channels(np.asarray(img, np.float32), size_wh,
+                           native=native)
 
 
 def random_scale_resize(sample: Dict, rng: np.random.Generator, img_scale,
-                        ratio_range=(0.5, 2.0)) -> Dict:
+                        ratio_range=(0.5, 2.0), native: bool = True) -> Dict:
     """Train-time random-ratio resize (keep_ratio)."""
     ratio = rng.uniform(*ratio_range)
     base = (int(img_scale[0] * ratio), int(img_scale[1] * ratio))
     img = sample["img"]
     new_wh = rescale_size((img.shape[1], img.shape[0]), base)
-    sample["img"] = resize_bilinear_hwc(img, new_wh)
+    sample["img"] = resize_bilinear_hwc(img, new_wh, native)
     if sample.get("gt") is not None:
         sample["gt"] = resize_nearest(sample["gt"], new_wh)
     return sample
@@ -495,8 +458,9 @@ def normalize_then_pad(sample: Dict, modalities_ch, n: dict, pad_size=None,
 class TrainPipeline:
     """The reference's train pipeline for all three datasets: blur,
     random-ratio resize, crop, flip, photometric distortion, normalise and
-    pad. `native=False` normalises in numpy (bit-equal) instead of the
-    native core. The sample dict passed in is left as it was."""
+    pad. `native=False` resizes and normalises in numpy (bit-equal)
+    instead of the native core. The sample dict passed in is left as it
+    was."""
 
     def __init__(self, cfg: dict, modalities_ch=(3, 3), native: bool = True):
         self.cfg = cfg
@@ -513,7 +477,7 @@ class TrainPipeline:
                 sample, rng, c["gaussian_blur"]["kernel_size"],
                 c["gaussian_blur"]["p"])
         sample = random_scale_resize(sample, rng, c["resize"]["img_scale"],
-                                     c["resize"]["ratio_range"])
+                                     c["resize"]["ratio_range"], self.native)
         sample = random_crop(sample, rng, c["crop"]["crop_size"],
                              c["crop"]["cat_max_ratio"])
         sample = random_flip(sample, rng, c["flip"]["prob"])

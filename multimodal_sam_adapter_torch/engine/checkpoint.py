@@ -13,7 +13,7 @@ without its URL resolution (the port reads local files only).
 - `load_state_dict_file` reads the model's state_dict from any of the
   forms the reference writes: the mmcv container, `{"model": ...}` or a
   bare state_dict, with DistributedDataParallel's `module.` prefix
-  stripped;
+  stripped; `read_checkpoint` also returns the container's `meta`;
 - `ingest_sam_pth`, `ingest_convnext_pth` and `merge_pretrained`: a SAM
   image encoder and an ImageNet ConvNeXt into the segmentor's state_dict.
   The port's names are the reference's keys, so ingestion renames keys
@@ -59,7 +59,16 @@ def load_state_dict_file(path: str, device="cpu") -> Dict[str, torch.Tensor]:
     `device`: unwrapped from `state_dict`, else `model` (the first of the
     two the file holds), with the `module.` prefix stripped. Reads with
     `weights_only=True`: tensors, numbers, strings and containers only."""
+    return read_checkpoint(path, device)[0]
+
+
+def read_checkpoint(path: str, device="cpu"
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """(`load_state_dict_file`'s state_dict, the container's `meta` or {})
+    from one read of the file."""
     ckpt = _load(path, device)
+    meta = ckpt.get("meta") if isinstance(ckpt, dict) else None
+    meta = meta if isinstance(meta, dict) else {}
     for key in CONTAINER_KEYS:
         if isinstance(ckpt, dict) and key in ckpt:
             ckpt = ckpt[key]
@@ -69,7 +78,7 @@ def load_state_dict_file(path: str, device="cpu") -> Dict[str, torch.Tensor]:
         raise RuntimeError(f"{path}: no state_dict of tensors in it (a bare "
                            f"one, or under {' or '.join(CONTAINER_KEYS)})")
     return {k[len(DDP_PREFIX):] if k.startswith(DDP_PREFIX) else k: v
-            for k, v in ckpt.items()}
+            for k, v in ckpt.items()}, meta
 
 
 # ---------------------------------------------------------------- save / load

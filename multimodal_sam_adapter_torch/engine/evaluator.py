@@ -18,8 +18,13 @@ default this process's rank and the process group's size
 (parallel/ddp.py); with more than one rank the histogram sums (flat and
 on the condition x case grid, float64 on the wire) are summed over the
 ranks, the counterpart of the JAX package's `_gather_shards`, so every
-rank reports the metrics of the whole dataset. `show` and `format_only`
-write images with OpenCV, which the port does not use: they raise.
+rank reports the metrics of the whole dataset.
+
+`show` writes each sample's palette blend under
+out_dir/prediction/<condition>/<case>/ (engine/visualize.py);
+`format_only` has the dataset write its submission files (MUSES's
+labelTrainIds PNGs) into out_dir and returns {'files': [...]} without
+metrics. Each rank writes the files of its own samples.
 
 A dataset yields dicts {'img': (H, W, C) float array, already normalised,
 'gt': (H, W) label map or None, 'meta': {'condition', 'case', ...}} and
@@ -31,8 +36,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..data.resize import resize_nearest
 from ..parallel.ddp import all_reduce_sum, rank_world
 from ..utils.interpolate import resize_bilinear
 from .inference import InferenceEngine
@@ -56,17 +61,19 @@ def _tensor(img: np.ndarray) -> torch.Tensor:
 
 class Evaluator:
     def __init__(self, engine: InferenceEngine, dataset, num_classes: int,
-                 ignore_index: int = 255, case_aware: bool = False):
+                 ignore_index: int = 255, case_aware: bool = False,
+                 out_dir: Optional[str] = None):
         self.engine = engine
         self.dataset = dataset
         self.num_classes = num_classes
         self.ignore_index = ignore_index
         self.case_aware = case_aware
+        self.out_dir = out_dir
 
     def run(self, pipeline: Optional[Callable] = None,
             max_samples: Optional[int] = None, format_only: bool = False,
-            show: bool = False, progress_every: int = 50,
-            batch_size: int = 1,
+            show: bool = False, opacity: float = 0.5,
+            progress_every: int = 50, batch_size: int = 1,
             shard: Optional[Tuple[int, int]] = None,
             aug_cfg: Optional[Dict] = None) -> Dict:
         """Evaluate indices rank::world of the first `max_samples` samples
@@ -81,14 +88,17 @@ class Evaluator:
         aug_cfg {'ratios': [...], 'flip': bool}: multi-scale + flip TTA,
         the softmax averaged over every (ratio x flip) before the argmax
         (a ratio other than 1.0 needs the pipeline, which does the resize).
+
+        show: with an `out_dir`, each sample's palette blend (`opacity`)
+        over its raw BGR image, as the JAX package writes it;
+        format_only: the dataset's `format_results` files under `out_dir`
+        (or ./results), returned as {'files': [...]}, this rank's own, no
+        metrics.
         """
-        if show or format_only:
-            raise NotImplementedError(
-                "show / format_only write images with OpenCV, which the "
-                "port does not use")
         rank, world = shard or rank_world()
         flat: List[Hist] = []
         nested: Dict[str, Dict[str, List[Hist]]] = {}
+        dumped: List[str] = []
         n = len(self.dataset) if max_samples is None else min(
             max_samples, len(self.dataset))
         if self.engine.test_cfg.get("mode") in ("slide", "slide_mod_sel"):
@@ -97,7 +107,21 @@ class Evaluator:
             batch_size = 1
         warned = [False]
 
-        def handle(sample, gt, pred, img=None, valid_hw=None):
+        def handle(idx, sample, gt, pred, img=None, valid_hw=None):
+            meta = sample.get("meta") or {}
+            if show and self.out_dir:
+                from .visualize import dump_prediction
+
+                raw = self.dataset[idx]["img"][..., :3].astype(np.uint8)
+                dump_prediction(
+                    self.out_dir, meta.get("condition"), meta.get("case"),
+                    meta["stem"].replace("/", "_") + ".png", raw, pred,
+                    getattr(self.dataset, "PALETTE", None)
+                    or [[i, i, i] for i in range(256)], opacity)
+            if format_only and hasattr(self.dataset, "format_results"):
+                dumped.extend(self.dataset.format_results(
+                    [pred], [meta["stem"]], self.out_dir or "results"))
+                return
             if gt is None:
                 return
             if pred.shape != gt.shape:
@@ -117,15 +141,13 @@ class Evaluator:
                                             gt.shape[:2])
                     pred = probs.argmax(dim=1)[0].cpu().numpy()
                 else:
-                    pred = F.interpolate(
-                        torch.from_numpy(pred)[None, None].float(),
-                        size=gt.shape[:2], mode="nearest")[0, 0]
-                    pred = pred.long().numpy()
+                    # cv2.INTER_NEAREST on int32, as the JAX package
+                    pred = resize_nearest(pred.astype(np.int32),
+                                          (gt.shape[1], gt.shape[0]))
             hist = intersect_and_union(pred, gt, self.num_classes,
                                        self.ignore_index)
             flat.append(hist)
             if self.case_aware:
-                meta = sample.get("meta") or {}
                 cond = meta.get("condition") or "all"
                 case = meta.get("case") or "ordinary"
                 nested.setdefault(cond, {}).setdefault(case, []).append(hist)
@@ -135,10 +157,10 @@ class Evaluator:
         def flush():
             if not buf:
                 return
-            imgs = torch.stack([_tensor(b[2]) for b in buf])
-            preds = self.engine.predict(imgs, valid_hw=buf[0][3]).numpy()
-            for (sample, gt, img, vhw), pred in zip(buf, preds):
-                handle(sample, gt, pred, img=img, valid_hw=vhw)
+            imgs = torch.stack([_tensor(b[3]) for b in buf])
+            preds = self.engine.predict(imgs, valid_hw=buf[0][4]).numpy()
+            for (idx, sample, gt, img, vhw), pred in zip(buf, preds):
+                handle(idx, sample, gt, pred, img=img, valid_hw=vhw)
             buf.clear()
 
         def aug_predict(raw):
@@ -173,21 +195,23 @@ class Evaluator:
             sample = self.dataset[i]
             gt = sample.get("gt")
             if aug_cfg:
-                handle(sample, gt, aug_predict(sample))
+                handle(i, sample, gt, aug_predict(sample))
             else:
                 if pipeline is not None:
                     sample = pipeline(sample)
                 img, ori_hw = _pad_for_model(sample["img"])
-                if buf and (buf[0][2].shape != img.shape
-                            or buf[0][3] != ori_hw):
+                if buf and (buf[0][3].shape != img.shape
+                            or buf[0][4] != ori_hw):
                     flush()
-                buf.append((sample, gt, img, ori_hw))
+                buf.append((i, sample, gt, img, ori_hw))
                 if len(buf) >= batch_size:
                     flush()
             done += 1
             if progress_every and done % progress_every == 0:
                 print(f"eval {done}/{total}", flush=True)
         flush()
+        if format_only:
+            return {"files": dumped}
 
         flat_sum, dense = self._densify(flat, nested)
         results: Dict = {"payload": {"flat": flat_sum, "nested": dense}}

@@ -4,20 +4,29 @@
     python -m multimodal_sam_adapter_torch.tools.test <config> <checkpoint>
         --data-root DIR [--eval mIoU] [--aug-test [--aug-ratios R ...]]
         [--resize-dim H W] [--case ...] [--max-samples N] [--batch-size N]
-        [--bf16 | --no-bf16] [--cfg-options k=v ...] [--device cuda|cpu]
-        [--out-dir DIR] [--dist-backend nccl|gloo]
+        [--show-dir DIR] [--format-only] [--bf16 | --no-bf16]
+        [--cfg-options k=v ...] [--device cuda|cpu] [--out-dir DIR]
+        [--dist-backend nccl|gloo]
 
 <checkpoint> is a torch checkpoint file with the reference checkpoint's key
 names, loaded strictly: a bare state_dict, the reference's mmcv container
 (`state_dict`, `meta`, `optimizer`) or `{"model": ...}`, keys with or
 without DistributedDataParallel's `module.` prefix
 (`engine/checkpoint.py`); or `random` for weights drawn from a
-torch.Generator seeded with 0. The dataset is read and preprocessed by the
-port's `data/` (which reads images with OpenCV); the model runs on `--device`,
-`cuda` by default, which fails when there is no card. Writes
+torch.Generator seeded with 0. A checkpoint's `meta` may name the CLASSES
+and PALETTE the dataset reports and draws with, as the root `test.py`
+reads them. The dataset is read and preprocessed by the port's `data/`
+(PNG files through data/image_io.py, no OpenCV); the model runs on
+`--device`, `cuda` by default, which fails when there is no card. Writes
 eval_single_scale_<stamp>.json (eval_multi_scale_... with --aug-test) into
---out-dir: the summary metrics, the condition x case results for DELIVER,
-and the run's provenance.
+--show-dir when one is given, else --out-dir: the summary metrics, the
+condition x case results for DELIVER, and the run's provenance.
+
+--show-dir DIR writes each sample's palette blend under
+DIR/prediction/<condition>/<case>/<stem>.png (engine/visualize.py);
+--format-only writes the dataset's submission files instead of metrics
+(MUSES: DIR/labelTrainIds/R....png, into --show-dir or ./results), as
+tools/infer_test.py does.
 
 On N ranks under torchrun (`python -m torch.distributed.run
 --nproc_per_node=N -m multimodal_sam_adapter_torch.tools.test ...`) each
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import os.path as osp
 import time
 
@@ -48,9 +58,10 @@ def parse_args(argv=None):
     p.add_argument("--resize-dim", nargs=2, type=int, default=None)
     p.add_argument("--case", nargs="*", default=None)
     p.add_argument("--show-dir", default=None,
-                   help="not supported by the port (needs OpenCV)")
+                   help="write palette-blended predictions (and the "
+                        "result file) here")
     p.add_argument("--format-only", action="store_true",
-                   help="not supported by the port (needs OpenCV)")
+                   help="write the dataset's submission files, no metrics")
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=1,
                    help="stack same-shape images through one forward "
@@ -85,7 +96,7 @@ def _evaluate(args, device):
 
     from ..configs.registry import apply_overrides, get_config
     from ..data import TestPipeline, build_dataset
-    from ..engine.checkpoint import load_state_dict_file
+    from ..engine.checkpoint import read_checkpoint
     from ..engine.evaluator import Evaluator
     from ..engine.inference import InferenceEngine
     from ..models.segmentor import build_segmentor
@@ -107,14 +118,24 @@ def _evaluate(args, device):
         gen = torch.Generator(device=device).manual_seed(0)
         model = build_segmentor(m, device, generator=gen)
     else:
-        sd = load_state_dict_file(args.checkpoint, device)
+        sd, meta = read_checkpoint(args.checkpoint, device)
         model = build_segmentor(m, device, state_dict=sd)
+        # self-describing checkpoints, as the root test.py reads them
+        if meta.get("config_name") not in (None, args.config) and is_main():
+            print(f"note: checkpoint was trained with config "
+                  f"'{meta['config_name']}', evaluating with "
+                  f"'{args.config}'")
+        if meta.get("CLASSES"):
+            ds.CLASSES = tuple(meta["CLASSES"])
+        if meta.get("PALETTE"):
+            ds.PALETTE = [tuple(c) for c in meta["PALETTE"]]
     if args.bf16:
         model = model.to(torch.bfloat16)
 
     engine = InferenceEngine(model, cfg["test_cfg"])
     case_aware = args.case is not None or bool(cfg["evaluation"].get("case"))
-    ev = Evaluator(engine, ds, m["num_classes"], case_aware=case_aware)
+    ev = Evaluator(engine, ds, m["num_classes"], case_aware=case_aware,
+                   out_dir=args.show_dir)
     aug_cfg = None
     if args.aug_test:
         ratios = args.aug_ratios or [0.5, 0.75, 1.0, 1.25, 1.5, 1.75]
@@ -128,7 +149,8 @@ def _evaluate(args, device):
     ev.print_tables(results)
     stamp = time.strftime("%Y%m%d_%H%M%S")
     scale_tag = "multi_scale" if args.aug_test else "single_scale"
-    out_json = osp.join(args.out_dir, f"eval_{scale_tag}_{stamp}.json")
+    out_json = osp.join(args.show_dir or args.out_dir,
+                        f"eval_{scale_tag}_{stamp}.json")
     payload = dict(results.get("summary", {}))
     payload["provenance"] = {
         "config": args.config,
@@ -145,6 +167,7 @@ def _evaluate(args, device):
     }
     if "eval_results" in results:
         payload["eval_results"] = results["eval_results"]
+    os.makedirs(osp.dirname(out_json) or ".", exist_ok=True)
     with open(out_json, "w") as f:
         json.dump(payload, f, indent=2)
     print(f"wrote {out_json}")

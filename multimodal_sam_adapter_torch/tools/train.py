@@ -23,8 +23,8 @@ BatchNorm statistics cover the global batch. `--dist-backend nccl` (the
 default) wants a card a rank; ranks that share a card, or run on the CPU
 (`--device cpu`), take `gloo`. The weights start as the JAX package draws
 them (models/init.py), from the seed, then take the pretrained files
-given. The train split is read by the port's `data/` (its image reading
-needs OpenCV) and transformed by `TrainPipeline` (which does not), the
+given. The train split is read by the port's `data/` (PNG files through
+data/image_io.py, no OpenCV) and transformed by `TrainPipeline`, the
 validation split through `TestPipeline` by one bf16 eval model whose
 weights and BatchNorm statistics are copied from the trained float32 ones
 at each evaluation, each rank evaluating its shard. Rank 0 writes the

@@ -10,8 +10,15 @@ dict the task saved to `<out_dir>/rank<r>.pt`, with its output under
 single-process references from the same functions, so every rank holds
 rows rank x B ... of the reference's global batch.
 
+A task returns only what its test reads: a tensor that a test compares
+bit for bit with another comes back as its `digest` (dtype, shape and a
+hash of its bytes), and only the tensors a tolerance check reads come
+back whole, so a spawn writes megabytes, not the model-sized states of
+every run.
+
 The file imports torch and the port only, never JAX.
 """
+import hashlib
 import os
 import socket
 import subprocess
@@ -127,6 +134,26 @@ def global_batches(n: int, B: int = 2, seed: int = 0, size: int = 64):
             np.float32)
         out.append(dict(img=torch.from_numpy(img), gt=torch.from_numpy(gt)))
     return out
+
+
+def digest(obj):
+    """`obj` with every tensor replaced by (dtype, shape, sha256 of its
+    bytes): equal digests are bit-equal tensors of one dtype and shape.
+    Dicts, lists and tuples are walked; anything else is kept."""
+    if torch.is_tensor(obj):
+        t = obj.detach().cpu().contiguous()
+        return (str(t.dtype), tuple(t.shape), hashlib.sha256(
+            t.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest())
+    if isinstance(obj, dict):
+        return {k: digest(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(digest(v) for v in obj)
+    return obj
+
+
+def keep(run: dict, *keys):
+    """The entries `keys` of a `train_run` result."""
+    return {k: run[k] for k in keys}
 
 
 def local(batch, rank: int, world: int):
@@ -295,12 +322,14 @@ def task_step(rank, world):
 
     model = tiny_model()
     batches = [local(b, rank, world) for b in global_batches(4)]
-    out = {"one": train_run(model, batches[:1], 1),
-           "accum": train_run(model, batches, 2)}
+    out = {"one": keep(train_run(model, batches[:1], 1),
+                       "losses", "grads", "stats"),
+           "accum": keep(train_run(model, batches, 2), "losses", "params")}
     real = layers.rank_world
     layers.rank_world = lambda: (0, 1)
     try:
-        out["unsynced"] = train_run(model, batches[:1], 1)
+        out["unsynced"] = keep(train_run(model, batches[:1], 1),
+                               "losses", "grads", "stats")
     finally:
         layers.rank_world = real
     x, dy = bn_inputs()
@@ -339,8 +368,9 @@ def task_jax(rank, world, state_dict_path, batch_path):
     parity batch, from the weights in `state_dict_path`, dropout at 0."""
     sd = torch.load(state_dict_path, weights_only=True)
     batch = torch.load(batch_path, weights_only=True)
-    return train_run(tiny_model(dropout=False), [local(batch, rank, world)],
-                     1, state_dict=sd)
+    return keep(train_run(tiny_model(dropout=False),
+                          [local(batch, rank, world)], 1, state_dict=sd),
+                "losses", "grads", "params", "stats")
 
 
 def task_eval(rank, world):
@@ -353,7 +383,8 @@ def task_runner(rank, world, work):
     """Test 6: build_runner on 6 raw samples (3 a rank an epoch), grad_accum
     2, 2 epochs with a checkpoint and an eval each, then a new runner
     resumes from the epoch-0 checkpoint (taken partway through an
-    accumulation) into a second work dir and runs epoch 1."""
+    accumulation) into a second work dir and runs epoch 1. The test
+    compares the states bit for bit: they come back as digests."""
     from multimodal_sam_adapter_torch.tools.train import build_runner
 
     cfg = runner_cfg()
@@ -395,11 +426,11 @@ def task_runner(rank, world, work):
     restored = (weights(resumed), resumed.state.optimizer.state_dict())
     resumed.run()
     resumed.logger.close()
-    return dict(straight=weights(straight), resumed=weights(resumed),
-                saved=saved[0], restored=restored, summaries=summaries,
-                start_epoch=resumed.start_epoch,
-                updates=(straight.state.optimizer.updates,
-                         resumed.state.optimizer.updates))
+    return digest(dict(straight=weights(straight), resumed=weights(resumed),
+                       saved=saved[0], restored=restored,
+                       summaries=summaries, start_epoch=resumed.start_epoch,
+                       updates=(straight.state.optimizer.updates,
+                                resumed.state.optimizer.updates)))
 
 
 def task_zero(rank, world, work, state_dict_path, batch_path):
@@ -407,26 +438,33 @@ def task_zero(rank, world, work, state_dict_path, batch_path):
     step, grad_accum 2, two updates, with the unsharded and the sharded
     optimizer; resumes after the first update from each one's saved state
     into the other; the sharded step from the JAX parity weights on this
-    rank's half of the JAX batch (grad_accum 1, dropout 0)."""
+    rank's half of the JAX batch (grad_accum 1, dropout 0). The tests
+    compare the first four runs bit for bit: they come back as digests;
+    the JAX run's losses and parameters, held to a tolerance, whole."""
     import torch.distributed as dist
 
     model = tiny_model()
     batches = [local(b, rank, world) for b in global_batches(4)]
-    out = {"plain": train_run(model, batches, 2),
-           "zero": train_run(model, batches, 2, zero=True)}
+    runs = {"plain": train_run(model, batches, 2),
+            "zero": train_run(model, batches, 2, zero=True)}
     for src, dst in (("zero", "plain"), ("plain", "zero")):
         path = Path(work) / f"{src}_update1.pt"
         if rank == 0:
-            torch.save(out[src]["saved"][0], path)
+            torch.save(runs[src]["saved"][0], path)
         dist.barrier()
-        out[f"{src}_to_{dst}"] = train_run(
+        runs[f"{src}_to_{dst}"] = train_run(
             model, batches[2:], 2, zero=dst == "zero",
             resume=torch.load(path, weights_only=True))
+        dist.barrier()
+        if rank == 0:
+            path.unlink()
+    out = digest(runs)
     sd = torch.load(state_dict_path, weights_only=True)
     batch = torch.load(batch_path, weights_only=True)
-    out["jax"] = train_run(tiny_model(dropout=False),
-                           [local(batch, rank, world)], 1, state_dict=sd,
-                           zero=True)
+    out["jax"] = keep(train_run(tiny_model(dropout=False),
+                                [local(batch, rank, world)], 1,
+                                state_dict=sd, zero=True),
+                      "losses", "params")
     return out
 
 

@@ -107,18 +107,19 @@ def test_runner_on_two_ranks_resumes_bit_equal(tmp_path):
     saved_opt = a["saved"][1]
     assert saved_opt["accum"]["mini_step"] == 1
     assert all(g is not None for g in saved_opt["accum"]["grads"])
+    # the states come back as digests (dtype, shape, byte hash): equal
+    # digests are bit-equal tensors
     for r in ranks:
         for n, t in r["saved"][0].items():          # what was saved ...
-            assert torch.equal(t, r["restored"][0][n]), n   # ... restored
+            assert t == r["restored"][0][n], n      # ... restored
         for g, h in zip(r["saved"][1]["accum"]["grads"],
                         r["restored"][1]["accum"]["grads"]):
-            assert torch.equal(g, h)
+            assert g == h
         for n, t in a["straight"].items():
-            assert torch.equal(r["straight"][n], t), n
-            assert torch.equal(r["resumed"][n], t), n
+            assert r["straight"][n] == t, n
+            assert r["resumed"][n] == t, n
     moved = [n for n, t in a["straight"].items()
-             if n.endswith("running_var")
-             and not torch.equal(t, a["saved"][0][n])]
+             if n.endswith("running_var") and t != a["saved"][0][n]]
     assert moved
 
 

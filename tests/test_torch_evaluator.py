@@ -149,9 +149,11 @@ def test_slide_and_tta_force_batch_one_and_unported_options_raise():
     Evaluator(engine, ds, K).run(progress_every=0, batch_size=4)
     assert [c[0] for c in engine.calls] == [1, 1, 1, 1]
     ev = Evaluator(StubEngine(True), ds, K)
-    for kw in (dict(show=True), dict(format_only=True)):
-        with pytest.raises(NotImplementedError):
-            ev.run(**kw)
+    # show without an out_dir writes nothing and scores as usual;
+    # format_only on a dataset with no format_results writes no files and
+    # skips the metrics (tests/test_torch_output_surface.py writes both)
+    assert "flat" in ev.run(show=True, progress_every=0)
+    assert ev.run(format_only=True, progress_every=0) == {"files": []}
     with pytest.raises(ValueError):  # a scale ratio needs the pipeline
         ev.run(aug_cfg={"ratios": [0.5], "flip": False})
 

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's JAX-free modules, held against
 their originals on the same inputs, and a scan that keeps the port's
-imports free of JAX and of the JAX package.
+imports free of JAX and of the JAX package, and of OpenCV and PIL.
 
 - configs/registry.py: every config equal, `apply_overrides` equal;
 - engine/metrics.py: histograms, flat and nested metrics, the report text
@@ -13,6 +13,7 @@ imports free of JAX and of the JAX package.
 """
 import ast
 import os
+import re
 from pathlib import Path
 
 import cv2
@@ -33,6 +34,9 @@ PORT_FILES = sorted(
     for p in (ROOT / "multimodal_sam_adapter_torch").rglob("*.py")) + [
         "chip_smoke.py", "kernel_checks.py"]
 FORBIDDEN = ("jax", "jaxlib", "multimodal_sam_adapter_tpu")
+# the card's machine has neither: the port reads and writes images itself
+# (data/image_io.py, data/resize.py); tests may import them as references
+IMAGE_LIBS = ("cv2", "PIL")
 
 
 def _equal(a, b):
@@ -270,9 +274,40 @@ def test_port_module_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_module_imports_no_opencv_or_pil(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in IMAGE_LIBS]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_gpu_marked_tests_import_no_opencv():
+    """The tests that run on the card's machine (marked gpu) import
+    neither OpenCV nor PIL, which it lacks."""
+    mark = re.compile(r"^(pytestmark\s*=.*|\s*@pytest)\.mark\.gpu\b",
+                      re.MULTILINE)
+    marked = [p for p in sorted((ROOT / "tests").glob("test_*.py"))
+              if mark.search(p.read_text())]
+    assert marked
+    for p in marked:
+        tree = ast.parse(p.read_text(), filename=str(p))
+        bad = [m for m in _imported_modules(tree)
+               if m.split(".")[0] in IMAGE_LIBS + FORBIDDEN]
+        assert not bad, f"{p.name} imports {bad}"
+
+
+def test_the_scan_covers_the_file_modules():
+    for path in ("data/image_io.py", "data/resize.py", "engine/visualize.py",
+                 "apis/inference.py", "tools/infer_test.py"):
+        assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
+
+
 def test_the_scan_sees_an_import_of_the_jax_package():
     tree = ast.parse("def f():\n    from multimodal_sam_adapter_tpu.data "
                      "import build_dataset\n    import jax.numpy as jnp\n")
     assert [m.split(".")[0] for m in _imported_modules(tree)] == [
         "multimodal_sam_adapter_tpu", "jax"]
+    tree = ast.parse("def f():\n    import cv2\n    from PIL import Image\n")
+    assert [m for m in _imported_modules(tree)] == ["cv2", "PIL"]
     assert os.path.exists(ROOT / "chip_smoke.py")

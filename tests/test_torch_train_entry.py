@@ -13,9 +13,9 @@ JAX package's.
   dropout and drop path 0 through --cfg-options, the initial weights
   through --load-from) against the JAX package's DataLoader,
   TrainPipeline, init_train_state, make_train_step and EpochRunner on the
-  same data and seed (the JAX pipeline resizing with the port's bilinear
-  resize, so that both train on the same images; the two resizes are
-  compared in tests/test_torch_train_data.py), 4 micro-steps: each loss
+  same data and seed (both pipelines give the same images: the two
+  resizes are held bit-equal in tests/test_torch_train_data.py), 4
+  micro-steps: each loss
   within rtol 1e-4. From seeded N(0, 0.05) weights every parameter is
   within 1e-4 + 1e-3 |p| after the last update (largest difference
   5.2e-6). From the JAX package's own initial weights, whose zero gates
@@ -75,7 +75,6 @@ def jax_run(fake_deliver, tmp_path_factory):  # noqa: F811
     bridge) and its per-step losses."""
     import jax
 
-    import multimodal_sam_adapter_torch.data.pipelines as tpipelines
     import multimodal_sam_adapter_tpu.data.pipelines as jpipelines
     from multimodal_sam_adapter_tpu.configs.registry import (
         apply_overrides, get_config as jax_config)
@@ -115,13 +114,7 @@ def jax_run(fake_deliver, tmp_path_factory):  # noqa: F811
             step, loader, work, max_epochs=cfg["runner"]["max_epochs"],
             ckpt_interval=1000, log_interval=1,
             rng=jax.random.PRNGKey(SEED + 1))
-        with pytest.MonkeyPatch.context() as mp:
-            # the port's bilinear resize in the JAX pipeline: both
-            # packages then train on the same images
-            mp.setattr(jpipelines, "_resize_multichannel",
-                       lambda img, wh, interpolation="bilinear":
-                       tpipelines.resize_bilinear_hwc(img, wh))
-            final = runner.run()
+        final = runner.run()
         runs[name] = dict(
             initial=state_dict_from_jax(v, IDX), losses=_losses(work),
             final=state_dict_from_jax(
