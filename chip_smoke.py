@@ -150,8 +150,36 @@ Phases, one line each; any failure exits non-zero before the last line:
    through F.interpolate (the train side's earlier resize), beside
    data/resize.py's.
 
+13. m2f: deliver_rgblidar with model.head_type=mask2former (the flagship
+   backbone and the Mask2Former head at its defaults: feat 512, 100
+   queries, 9 decoder and 6 deformable encoder layers), weights as the
+   JAX package initialises them, from the seed. K3 at the pixel
+   decoder's shapes (21504 tokens querying their own 3 levels, 8 heads
+   of D = 64, and deliver_tiny_m2f's D = 4) against its plain version in
+   float32 and bf16, with the bound, `gather_mb` and its Function's
+   gradients. (a) The float32 1024^2 forward kernel vs plain: the pixel
+   decoder's mask features and three memories within 1e-3 x max|.|, the
+   class maps >= 98% equal, the attention-mask entries that differ, the
+   launches of one forward (K3 4 + 6 = 10). (b) The model in bf16 answers
+   3 requests through InferenceEngine.predict ('whole_dim'): class maps
+   >= 98% equal to the plain path's, launches, ms per image, peak GiB.
+   (c) One float32 micro-step kernel vs plain on the same weights, batch
+   and point draws, the plain path given the kernel path's attention
+   masks and Hungarian assignments: loss within 1e-3 relative, gradients
+   within 1e-2 relative L2; the assignments and mask bits the plain path
+   changes when not given them; launches (K3 8 + 6 = 14). (d) Two bf16
+   updates of grad_accum 2: finite losses, every parameter moved (or its
+   step below half an ulp), the micro-step's launches, ms, peak GiB,
+   device busy ms and idle share, and its Hungarian solves with their
+   host ms. (e) tools/test.py with --cfg-options
+   model.head_type=mask2former on a DeLiVER tree of two 1024^2 samples a
+   split (phase 12's writer): histograms equal to Evaluator.run over the
+   same samples in memory; tools/train.py: one epoch of two micro-steps,
+   one update, the micro-step's launches.
+
 `python3 chip_smoke.py --phase ddp` runs phases 1, 2 and 11 alone (the
-four-card run); `--phase files` runs phases 1, 2 and 12.
+four-card run); `--phase files` runs phases 1, 2 and 12; `--phase m2f`
+phases 1, 2 and 13.
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -221,6 +249,16 @@ FILES_DELIVER_STEMS = ("sun_test_0", "motionblur_rain_test_1")
 FILES_MUSES_RECORD = "REC0001"
 FILES_FILTERS = (0, 1, 2, 3, 4)
 FILES_SLAB_ROWS = 64
+# phase 13: the Mask2Former head (deliver_rgblidar with
+# model.head_type=mask2former) adds its pixel decoder's 6 encoder layers to
+# K3's launches, a forward and a micro-step (the head is not checkpointed);
+# its bf16 updates take grad_accum 2
+M2F_ENCODER_LAYERS = 6
+PER_M2F_FORWARD = dict(PER_FORWARD, msda_multi_level=(
+    PER_FORWARD["msda_multi_level"] + M2F_ENCODER_LAYERS))
+PER_M2F_MICRO_STEP = dict(PER_MICRO_STEP, msda_multi_level=(
+    PER_MICRO_STEP["msda_multi_level"] + M2F_ENCODER_LAYERS))
+M2F_ACCUM = 2
 # bf16: the gradients held one by one, where each kernel's backward lands
 TRAIN_WATCHED = (
     "backbone.blocks.0.attn.qkv.weight",          # K1's block
@@ -516,7 +554,8 @@ def agreement(a, b):
     return (a == b).float().mean().item()
 
 
-def phase_serve(torch, kernels, engine, imgs):
+def phase_serve(torch, kernels, engine, imgs, per_forward=PER_FORWARD,
+                phase="serve"):
     def serve(plain):
         times, preds = [], []
         for img in imgs:
@@ -534,7 +573,7 @@ def phase_serve(torch, kernels, engine, imgs):
         kernels.reset_launches()
         k_times, preds = serve(plain=False)      # the main path
         counts = dict(kernels.LAUNCHES)
-    k6.report("serve")
+    k6.report(phase)
     peak_kernel = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     p_times, p_preds = serve(plain=True)
@@ -546,11 +585,11 @@ def phase_serve(torch, kernels, engine, imgs):
     logits = engine.logits(imgs[0])
     check(torch.isfinite(logits).all().item(), "non-finite bf16 logits")
     agree = sum(agreement(a, b) for a, b in zip(preds, p_preds)) / len(preds)
-    expect = {k: REQUESTS * v for k, v in PER_FORWARD.items()}
+    expect = {k: REQUESTS * v for k, v in per_forward.items()}
     # steady state: the requests after the first of each path
     ms = sorted(k_times[1:] + k_times2)
     pms = sorted(p_times[1:] + p_times2)
-    line("serve", dtype="bf16", requests=REQUESTS,
+    line(phase, dtype="bf16", requests=REQUESTS,
          kernel_ms_per_img=f"{sum(ms) / len(ms):.2f}",
          plain_ms_per_img=f"{sum(pms) / len(pms):.2f}",
          first_request_ms=f"{k_times[0]:.1f}",
@@ -2015,22 +2054,24 @@ def _blocks(rng, hw, classes, block):
     return gt
 
 
-def write_file_trees(root, rng):
-    """Phase 12 (a): a DeLiVER tree (two 1024^2 samples in each split:
-    BGR, 3-channel LiDAR, 25-class labels) and a MUSES tree (one 1920x1080
-    clear/day frame, its LiDAR .npz and 19-class labels), the PNGs written
-    by the port's writer with the row filters taken in turn. Returns
-    {path: array written}."""
+def _png_writer(written):
+    """png(path, arr): the port's writer (row filters FILES_FILTERS in
+    turn), each array kept in `written` under its path."""
     from multimodal_sam_adapter_torch.data import image_io
-    from multimodal_sam_adapter_torch.data.datasets import (CITYSCAPES_PALETTE,
-                                                            DELIVER_PALETTE)
-
-    written = {}
 
     def png(path, arr):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         image_io.imwrite(path, arr, filters=FILES_FILTERS)
         written[path] = arr
+
+    return png
+
+
+def write_deliver_tree(root, rng, png):
+    """A DeLiVER tree under root/deliver: the FILES_DELIVER_STEMS 1024^2
+    samples in each split (BGR, 3-channel LiDAR, 25-class labels with 5%
+    ignored). Returns its root."""
+    from multimodal_sam_adapter_torch.data.datasets import DELIVER_PALETTE
 
     deliver = os.path.join(root, "deliver", "samples")
     for stem in FILES_DELIVER_STEMS:
@@ -2044,6 +2085,20 @@ def write_file_trees(root, rng):
                           "annotations": "semantic"}[d]
                 png(os.path.join(deliver, d, split,
                                  f"{stem}_{suffix}_front.png"), arr)
+    return os.path.dirname(deliver)
+
+
+def write_file_trees(root, rng):
+    """Phase 12 (a): a DeLiVER tree (two 1024^2 samples in each split:
+    BGR, 3-channel LiDAR, 25-class labels) and a MUSES tree (one 1920x1080
+    clear/day frame, its LiDAR .npz and 19-class labels), the PNGs written
+    by the port's writer with the row filters taken in turn. Returns
+    {path: array written}."""
+    from multimodal_sam_adapter_torch.data.datasets import CITYSCAPES_PALETTE
+
+    written = {}
+    png = _png_writer(written)
+    deliver = write_deliver_tree(root, rng, png)
     muses = os.path.join(root, "muses")
     gt = _blocks(rng, (1080, 1920), 19, 60)
     png(os.path.join(muses, "frame_camera", "test", "clear", "day",
@@ -2056,7 +2111,7 @@ def write_file_trees(root, rng):
     os.makedirs(lidar, exist_ok=True)
     np.savez(os.path.join(lidar, f"{FILES_MUSES_RECORD}_lidar.npz"),
              rng.standard_normal((1080, 1920, 3)).astype(np.float32) * 5)
-    return written, os.path.join(root, "deliver"), muses
+    return written, deliver, muses
 
 
 def check_decoded(written):
@@ -2334,26 +2389,392 @@ def phase_files(torch, kernels, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def m2f_config():
+    """deliver_rgblidar with model.head_type=mask2former: the flagship
+    backbone and the Mask2Former head at its defaults (feat 512, 100
+    queries, 9 decoder and 6 encoder layers), as the entries build it
+    from `--cfg-options model.head_type=mask2former`."""
+    from multimodal_sam_adapter_torch.configs.registry import (
+        apply_overrides, get_config)
+
+    return apply_overrides(get_config("deliver_rgblidar"),
+                           {"model.head_type": "mask2former"})
+
+
+def check_k3_pixel_decoder(torch, kc):
+    """K3 at the pixel decoder's shapes (`kc.MSDA_PIXEL_DECODER`) in
+    float32 and bf16 against its plain version, and its Function's
+    gradients against the plain autodiff there. Returns {dtype tag: [case
+    results]}."""
+    name = "msda_multi_level"
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        out[tag] = []
+        for label, kw in kc.MSDA_PIXEL_DECODER:
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            case = kc.msda_encoder_case(dtype, g, **kw)
+            res = check_case(torch, kc, name, label, case, dtype, tag)
+            res["gather_mb"] = kc.msda_gather_bytes(case[1]) / 1e6
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            fres = kc.function_check(*kc.msda_encoder_case(dtype, g, **kw),
+                                     g)
+            tol = kc.GRAD_TOLERANCES[dtype]
+            line("kernels", name=name, shape=label, dtype=tag,
+                 gather_mb=f"{res['gather_mb']:.1f}",
+                 grad_recording_call=fres["function"],
+                 same_output=fres["same_output"],
+                 grad_rel_err=f"{fres['grad_rel_err']:.3e}", tol=tol)
+            check(fres["same_output"] and fres["grad_rel_err"] <= tol
+                  and str(fres["function"]).endswith("FunctionBackward"),
+                  f"K3 {label} {tag}: the Function's output or gradients "
+                  f"off the plain version's: {fres}")
+            out[tag].append(res)
+    return out
+
+
+def _rel_l2_of(a, b, names):
+    return (sum((a[n] - b[n]).square().sum().item() for n in names)
+            / sum(b[n].square().sum().item() for n in names)) ** 0.5
+
+
+def _differing(a, b):
+    """(entries that differ, entries) over two lists of tensors."""
+    return (sum(int((x != y).sum().item()) for x, y in zip(a, b)),
+            sum(x.numel() for x in a))
+
+
+def m2f_forward(torch, kernels, model, x):
+    """(a): the float32 forward through the kernels and through the plain
+    versions; the pixel decoder's outputs, the class maps, the attention
+    masks. Returns the launches of one forward."""
+    head = model.decode_head
+    outs = []
+    hook = head.pixel_decoder.register_forward_hook(
+        lambda m, a, out: outs.append([out[0], *out[1]]))
+    try:
+        with torch.no_grad():
+            kernels.reset_launches()
+            got = model(x)                         # the main path
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            masks_k = head.record["attn_masks"]
+            with kernels.plain_kernels():
+                want = model(x)
+            masks_p = head.record["attn_masks"]
+    finally:
+        hook.remove()
+    check(got.shape == (1, 1024, 1024, 25), f"m2f logits shape {got.shape}")
+    check(torch.isfinite(got).all().item(), "m2f: non-finite logits")
+    errs = {}
+    for label, k, p in zip(("mask_features", "memory_32", "memory_16",
+                            "memory_8"), *outs):
+        scale = p.abs().max().item()
+        errs[label] = ((k - p).abs().max().item(), scale)
+    agree = agreement(got.argmax(-1), want.argmax(-1))
+    flips, bits = _differing(masks_k, masks_p)
+    logit_err = (got - want).abs().max().item()
+    line("m2f", part="a", dtype="f32", config="deliver_rgblidar+mask2former",
+         encoder_layers=len(head.pixel_decoder.encoder.layers),
+         decoder_layers=len(head.transformer_decoder.layers),
+         queries=head.num_queries,
+         pixel_decoder_err_over_max=compact(
+             {k: float(f"{e / s:.3e}") for k, (e, s) in errs.items()}),
+         tol=f"{FORWARD_RTOL_OF_MAX}*max|.|",
+         logits_max_abs_err=f"{logit_err:.3e}",
+         logits_max_abs=f"{want.abs().max().item():.4e}",
+         class_agreement_with_plain=f"{agree:.6f}",
+         attn_mask_entries_differing=f"{flips}/{bits}",
+         attn_mask_share_differing=f"{flips / bits:.3e}",
+         launches=compact(counts))
+    for label, (e, s) in errs.items():
+        check(e <= FORWARD_RTOL_OF_MAX * s, f"m2f: {label} of the kernel "
+              f"and plain paths differ by {e:.3e} > {FORWARD_RTOL_OF_MAX} x "
+              f"{s:.3e}")
+    check(agree >= AGREE_MIN, f"m2f: float32 class maps agree on "
+                              f"{agree:.4f} < {AGREE_MIN}")
+    check(counts == PER_M2F_FORWARD,
+          f"m2f: launch counts {counts} != {PER_M2F_FORWARD}")
+    return counts
+
+
+def m2f_compare_step(torch, kernels, model, img, gt):
+    """(c): one float32 micro-step through the kernels, then through the
+    plain versions given the kernel path's attention masks and
+    assignments (the thresholds' and the argmin's round-off apart), and
+    once more unpinned to count what they would have changed."""
+    from multimodal_sam_adapter_torch.models.mask2former import matching
+
+    head = model.decode_head
+    kernels.reset_launches()
+    matching.SOLVES.update(calls=0, images=0)
+    loss_k = micro_step(torch, kernels, model, img, gt, 1, None, False)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    solves = dict(matching.SOLVES)
+    g_k = grads_of(model)
+    rec_k = {k: list(v) for k, v in head.record.items()}
+    loss_u = micro_step(torch, kernels, model, img, gt, 1, None, True)
+    rec_u = {k: list(v) for k, v in head.record.items()}
+    head.pinned = rec_k
+    try:
+        loss_p = micro_step(torch, kernels, model, img, gt, 1, None, True)
+    finally:
+        head.pinned = None
+    g_p = grads_of(model)
+    model.zero_grad(set_to_none=True)
+    lk, lp, lu = loss_k.item(), loss_p.item(), loss_u.item()
+    names = list(g_p)
+    rel = _rel_l2_of(g_k, g_p, names)
+    head_rel = _rel_l2_of(g_k, g_p, [n for n in names
+                                     if n.startswith("decode_head.")])
+    loss_rel = abs(lk - lp) / abs(lp)
+    a_diff, a_all = _differing(rec_u["assign"], rec_k["assign"])
+    m_diff, m_all = _differing(rec_u["attn_masks"], rec_k["attn_masks"])
+    line("m2f", part="c", dtype="f32", loss_kernel=f"{lk:.6f}",
+         loss_plain=f"{lp:.6f}", loss_rel_err=f"{loss_rel:.3e}",
+         grad_rel_l2=f"{rel:.3e}", head_grad_rel_l2=f"{head_rel:.3e}",
+         unpinned_loss_plain=f"{lu:.6f}",
+         unpinned_assignments_differing=f"{a_diff}/{a_all}",
+         unpinned_attn_mask_bits_differing=f"{m_diff}/{m_all}",
+         solves=int(solves["calls"]), launches=compact(counts))
+    check(counts == PER_M2F_MICRO_STEP,
+          f"m2f f32: launches {counts} != {PER_M2F_MICRO_STEP}")
+    check(all(torch.isfinite(t).all().item() for t in g_k.values()),
+          "m2f f32: non-finite gradients")
+    check(loss_rel <= TRAIN_LOSS_RTOL["f32"],
+          f"m2f f32: losses {lk} (kernel) vs {lp} (plain)")
+    check(rel <= TRAIN_GRAD_REL_F32,
+          f"m2f f32: gradients {rel:.3e} from plain > {TRAIN_GRAD_REL_F32}")
+    return counts
+
+
+def m2f_updates(torch, kernels, state, smi, g, classes):
+    """(d): two bf16 updates of grad_accum M2F_ACCUM through the kernels,
+    then one micro-step profiled."""
+    from multimodal_sam_adapter_torch.engine.train import make_train_step
+    from multimodal_sam_adapter_torch.models.mask2former import matching
+    from multimodal_sam_adapter_torch.utils.profiling import profile_calls
+
+    model = state.model
+    step = make_train_step(model, state.optimizer,
+                           compute_dtype=torch.bfloat16)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, updated, solves = [], [], [], []
+    for i in range(2 * M2F_ACCUM):
+        img, gt = train_batch(torch, g, classes)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        matching.SOLVES.update(calls=0, images=0, copy_ms=0.0, solve_ms=0.0)
+        start.record()
+        out = step(state, dict(img=img, gt=gt))
+        end.record()
+        torch.cuda.synchronize()
+        check(dict(kernels.LAUNCHES) == PER_M2F_MICRO_STEP,
+              f"m2f micro-step {i}: launches {dict(kernels.LAUNCHES)}")
+        times.append(start.elapsed_time(end))
+        losses.append(out["loss"].item())
+        updated.append(out["updated"])
+        solves.append(dict(matching.SOLVES))
+    peak = torch.cuda.max_memory_allocated()
+    unchanged = [n for n, p in model.named_parameters()
+                 if torch.equal(p, params0[n])]
+    rounded = [n for n in unchanged if unchanged_by_rounding(
+        torch, state.optimizer, model.get_parameter(n))]
+    accum_ms = sorted(t for t, u in zip(times[1:], updated[1:]) if not u)
+
+    img, gt = train_batch(torch, g, classes)
+    res = profile_calls(lambda: micro_step(
+        torch, kernels, model, img, gt, 2, torch.bfloat16, False), 1,
+        Path(__file__).resolve().parent / "build" / "profiles"
+        / "m2f_micro_step.json", repeats=3)
+    model.zero_grad(set_to_none=True)
+    fams = list(res["family_ms"].items())[:6]
+    line("m2f", part="d", dtype="bf16", micro_steps=len(losses),
+         grad_accum=M2F_ACCUM, updates=state.optimizer.updates,
+         losses=compact([round(v, 5) for v in losses]),
+         first_micro_step_ms=f"{times[0]:.1f}",
+         micro_step_ms=f"{_median(accum_ms or times[1:]):.1f}",
+         micro_step_ms_all=compact([round(t, 1) for t in times]),
+         peak_mem_gib=f"{peak / 2**30:.3f}",
+         hungarian_solves_per_micro_step=int(solves[-1]["calls"]),
+         hungarian_images_per_micro_step=int(solves[-1]["images"]),
+         hungarian_copy_ms=compact([round(s["copy_ms"], 2) for s in solves]),
+         hungarian_solve_ms=compact([round(s["solve_ms"], 2)
+                                     for s in solves]),
+         busy_ms=f"{res['busy_ms']:.2f}",
+         unprofiled_ms=f"{res['unprofiled_ms']:.2f}",
+         idle_share=f"{res['idle_share']:.3f}",
+         top_families_ms=compact({k: round(v, 2) for k, v in fams}),
+         unchanged_params=compact(unchanged),
+         unchanged_by_rounding=len(rounded), card=repr(smi))
+    check(all(np.isfinite(v) for v in losses), f"m2f: losses {losses}")
+    check(updated == [(i + 1) % M2F_ACCUM == 0
+                      for i in range(2 * M2F_ACCUM)]
+          and state.optimizer.updates == 2, f"m2f: updates at {updated}")
+    check(unchanged == rounded, "m2f: parameters unchanged whose step "
+          f"exceeds half an ulp: {sorted(set(unchanged) - set(rounded))}")
+
+
+def m2f_entries(torch, kernels, smi):
+    """(e): tools/test.py and tools/train.py with --cfg-options
+    model.head_type=mask2former on a DeLiVER tree of two 1024^2 samples a
+    split (phase 12's writer). Returns the test entry's launches."""
+    import shutil
+    import tempfile
+
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.data import TestPipeline
+    from multimodal_sam_adapter_torch.engine.evaluator import Evaluator
+    from multimodal_sam_adapter_torch.tools import test as test_tool
+    from multimodal_sam_adapter_torch.tools import train as train_tool
+
+    work = tempfile.mkdtemp(prefix="msa_m2f_")
+    opts = ["--cfg-options", "model.head_type=mask2former"]
+    try:
+        deliver = write_deliver_tree(work, np.random.default_rng(SEED + 13),
+                                     _png_writer({}))
+        with _Recorder(torch) as rec:
+            kernels.reset_launches()
+            test_tool.main(["deliver_rgblidar", "random", "--data-root",
+                            deliver, "--out-dir", work] + opts)
+            counts = dict(kernels.LAUNCHES)
+            ev = rec.runs[0]["ev"]
+            cfg = get_config("deliver_rgblidar")
+            pipe = TestPipeline(cfg["test_pipeline"],
+                                cfg["dataset"]["modalities_ch"])
+            samples = [ev.dataset[i] for i in range(len(ev.dataset))]
+            mem = Evaluator(ev.engine, _ListDataset(samples, ev.dataset),
+                            ev.num_classes, case_aware=True).run(
+                pipeline=pipe, progress_every=0)
+        res, entry_ms = rec.runs[0]["res"], rec.runs[0]["ms"]
+        n = len(ev.dataset)
+        expect = {k: n * v for k, v in PER_M2F_FORWARD.items()}
+        check(counts == expect, f"m2f: test entry launches {counts} != "
+                                f"{expect}")
+        check(type(ev.engine.model.decode_head).__name__ ==
+              "Mask2FormerHead", "m2f: the test entry built another head")
+        for key in ("flat", "nested"):
+            check(np.array_equal(res["payload"][key], mem["payload"][key]),
+                  f"m2f: the entry's {key} histograms differ from the "
+                  f"in-memory Evaluator's")
+        del ev, rec, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        steps = []
+        real_build = train_tool.build_runner
+
+        def instrumented(*a, **kw):
+            runner = real_build(*a, **kw)
+            step = runner.train_step
+
+            def counted_step(state, batch):
+                before = dict(kernels.LAUNCHES)
+                res = step(state, batch)
+                steps.append(dict(loss=res["loss"].item(), launches={
+                    k: kernels.LAUNCHES[k] - before[k] for k in before}))
+                return res
+
+            runner.train_step = counted_step
+            return runner
+
+        train_tool.build_runner = instrumented
+        try:
+            kernels.reset_launches()
+            runner = train_tool.main([
+                "deliver_rgblidar", "--data-root", deliver, "--work-dir",
+                os.path.join(work, "train"), "--max-epochs", "1"]
+                + opts + ["data.grad_accum=2"])
+        finally:
+            train_tool.build_runner = real_build
+        losses = [s["loss"] for s in steps]
+        check(type(runner.state.model.decode_head).__name__ ==
+              "Mask2FormerHead" and len(steps) == 2
+              and runner.state.optimizer.updates == 1
+              and all(np.isfinite(v) for v in losses)
+              and all(s["launches"] == PER_M2F_MICRO_STEP for s in steps),
+              f"m2f: train entry micro-steps {len(steps)}, updates "
+              f"{runner.state.optimizer.updates}, losses {losses}, "
+              f"launches {[s['launches'] for s in steps]}")
+        line("m2f", part="e", samples=n, histograms_bit_equal=True,
+             eval_ms_per_img_entry=f"{entry_ms:.2f}",
+             test_launches=compact(counts),
+             train_losses=compact([round(v, 5) for v in losses]),
+             train_launches=compact([s["launches"] for s in steps]),
+             card=repr(smi))
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_m2f(torch, kernels, smi, kc):
+    """Phase 13: the Mask2Former head at full width. Returns the launches
+    of one float32 forward and of one float32 micro-step, and K3's checks
+    at the pixel decoder's shapes."""
+    from multimodal_sam_adapter_torch.engine.inference import InferenceEngine
+    from multimodal_sam_adapter_torch.engine.train import init_train_state
+    from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
+
+    k3 = check_k3_pixel_decoder(torch, kc)
+    cfg = m2f_config()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    model = build_segmentor(cfg["model"], "cuda", generator=g, init="jax")
+    imgs = [torch.randn((1, 1024, 1024, 6), generator=g, device="cuda")
+            for _ in range(REQUESTS)]
+    fwd = m2f_forward(torch, kernels, model, imgs[0])
+    model = model.to(torch.bfloat16)
+    phase_serve(torch, kernels, InferenceEngine(model, cfg["test_cfg"]),
+                [x.to(torch.bfloat16) for x in imgs], PER_M2F_FORWARD, "m2f")
+    del model, imgs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = init_train_state(
+        cfg["model"], "cuda", seed=SEED,
+        optimizer_kwargs=dict(cfg["optimizer"], grad_accum_steps=M2F_ACCUM),
+        init="jax")
+    classes = cfg["model"]["num_classes"]
+    img, gt = train_batch(torch, g, classes)
+    step = m2f_compare_step(torch, kernels, state.model, img, gt)
+    m2f_updates(torch, kernels, state, smi, g, classes)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    m2f_entries(torch, kernels, smi)
+    return fwd, step, k3
+
+
 def main(phases=None):
     """Every phase; with `phases` == ["ddp"], phases 1, 2 and 11 alone
     (the four-card run: phase 11 is what there is to see across cards);
-    with ["files"], phases 1, 2 and 12."""
+    with ["files"], phases 1, 2 and 12; with ["m2f"], phases 1, 2 and
+    13."""
     import torch
 
     kind, smi = phase_device(torch)
-    if phases in (["ddp"], ["files"]):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import kernel_checks as kc
+    if phases in (["ddp"], ["files"], ["m2f"]):
         from multimodal_sam_adapter_torch.ops import kernels
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_build(kernels)
-        (phase_ddp if phases == ["ddp"] else phase_files)(torch, kernels, smi)
+        if phases == ["m2f"]:
+            phase_m2f(torch, kernels, smi, kc)
+        else:
+            (phase_ddp if phases == ["ddp"] else phase_files)(torch, kernels,
+                                                              smi)
         print(json.dumps({"ok": True, "phases": phases, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import kernel_checks as kc
     from multimodal_sam_adapter_torch.configs.registry import get_config
     from multimodal_sam_adapter_torch.engine.evaluator import (
         Evaluator, _pad_for_model)
@@ -2407,6 +2828,9 @@ def main(phases=None):
     gc.collect()
     torch.cuda.empty_cache()
     files_counts = phase_files(torch, kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m2f_counts, m2f_step_counts, k3_m2f = phase_m2f(torch, kernels, smi, kc)
 
     out = []
     for row in rows:
@@ -2415,6 +2839,8 @@ def main(phases=None):
                  if k in bf}
         if "product_ms" in row:   # K6's yardstick: a key of its own
             extra["product_ms"] = row.pop("product_ms")
+        if row["name"] == "msda_multi_level":   # the pixel decoder's K3
+            extra["m2f_shapes"] = k3_m2f
         out.append(dict(row, launches=counts[row["name"]],
                         train_launches=train_counts[row["name"]],
                         train_entry_launches=entry_counts[row["name"]],
@@ -2422,6 +2848,8 @@ def main(phases=None):
                         zero_launches=ddp_counts["zero"][row["name"]],
                         tp_launches=ddp_counts["tp"][row["name"]],
                         files_launches=files_counts[row["name"]],
+                        m2f_launches=m2f_counts[row["name"]],
+                        m2f_train_launches=m2f_step_counts[row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
@@ -2437,11 +2865,12 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ddp-rank"]:
             ddp_rank_main(*sys.argv[2:4])
-        elif sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["ddp"],
-                                                             ["files"]):
+        elif sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (
+                ["ddp"], ["files"], ["m2f"]):
             main(sys.argv[2:])
         elif sys.argv[1:]:
-            raise SystemExit(f"usage: {sys.argv[0]} [--phase ddp|files]")
+            raise SystemExit(
+                f"usage: {sys.argv[0]} [--phase ddp|files|m2f]")
         else:
             main()
     except PhaseError as e:

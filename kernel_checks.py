@@ -128,6 +128,18 @@ MSDA_RAGGED = (("fmb", dict(grid=(50, 50))),
                # at 4 and at 2 model ranks (parallel/tp.py)
                ("tp4_heads", dict(heads=4, value_width=4 * 32)),
                ("tp2_heads", dict(heads=8, value_width=8 * 32)))
+# K3 in the Mask2Former head's pixel decoder (models/mask2former/
+# pixel_decoder.py): the encoder's tokens sample their own three levels
+# (stride 32, 16, 8), Lq = S, with the (1, S, 3, 2) reference points of the
+# tokens' own pixel centres. At 1024^2 with the head at its defaults
+# (deliver_rgblidar + model.head_type=mask2former): 32^2 + 64^2 + 128^2 =
+# 21504 tokens, 8 heads of D = 64 (feat 512), 4 points; deliver_tiny_m2f's
+# 64^2 input: 2^2 + 4^2 + 8^2 tokens, 8 heads of D = 4 (feat 32), batch 2
+MSDA_PIXEL_DECODER = (
+    ("m2f_pixel_decoder", dict(levels=((32, 32), (64, 64), (128, 128)),
+                               heads=8, value_width=512)),
+    ("m2f_tiny", dict(levels=((2, 2), (4, 4), (8, 8)), heads=8,
+                      value_width=32, batch=2)))
 # ragged shapes: the FMB (800^2) stage widths that fill no tile, and the
 # narrow widths of the test configurations (atto trunk, embed 32)
 CONVNEXT_RAGGED = ((25, 768), (50, 384), (16, 40))
@@ -329,6 +341,23 @@ def msda_case(name: str, dtype: torch.dtype, g: torch.Generator,
                             points)
 
 
+def msda_encoder_case(dtype: torch.dtype, g: torch.Generator,
+                      levels: Tuple[Tuple[int, int], ...], heads: int,
+                      value_width: int, batch: int = 1,
+                      points: int = DEF_POINTS) -> Tuple[Callable, tuple]:
+    """K3 as the pixel decoder's encoder calls it: every token of the
+    `levels` queries them all from its own pixel centre (the reference
+    points broadcast over the levels and the batch, materialised)."""
+    L = len(levels)
+    S = sum(h * w for h, w in levels)
+    ref = torch.as_tensor(reference_points(levels), device=g.device)
+    ref = ref.expand(1, S, L, 2).contiguous()
+    value = _randn((batch, S, value_width), g, dtype)
+    offs = _randn((batch, S, heads * L * points * 2), g, dtype, 8.0)
+    logits = _randn((batch, S, heads * L * points), g, dtype)
+    return ms_deform_attn, (value, levels, ref, offs, logits, heads, points)
+
+
 def _stage_label(shape) -> str:
     return "x".join(str(v) for v in (shape[0], shape[0], shape[1]))
 
@@ -336,7 +365,8 @@ def _stage_label(shape) -> str:
 def cases(name: str, dtype: torch.dtype, seed: int = 0):
     """Every case of one kernel: (label, on_main_path, (wrapper, args)).
     The flagship shapes (K5: its four stages) are on the main path; K1 and
-    K2 also run at `ATTENTION_RAGGED`, K3 and K4 at `MSDA_RAGGED`, K5 at
+    K2 also run at `ATTENTION_RAGGED`, K3 and K4 at `MSDA_RAGGED`, K3 at
+    the Mask2Former pixel decoder's `MSDA_PIXEL_DECODER`, K5 at
     `CONVNEXT_RAGGED` and at its first ragged shape with batch 3, writing
     into a guarded buffer (`convnext_with_guard`), K6 at
     `PIXEL_SHUFFLE_RAGGED`. Each case draws from its own generator seeded
@@ -353,6 +383,9 @@ def cases(name: str, dtype: torch.dtype, seed: int = 0):
     if name in ("msda_multi_level", "msda_single_level"):
         for label, kw in MSDA_RAGGED:
             yield label, False, msda_case(name, dtype, gen(), **kw)
+    if name == "msda_multi_level":
+        for label, kw in MSDA_PIXEL_DECODER:
+            yield label, False, msda_encoder_case(dtype, gen(), **kw)
     if name == "pixel_shuffle_up_bn":
         for label, kw in PIXEL_SHUFFLE_RAGGED:
             kw = dict(kw)

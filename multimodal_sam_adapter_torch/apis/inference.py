@@ -40,8 +40,6 @@ def init_segmentor(config_name: str, checkpoint: Optional[str] = None,
 
     cfg = get_config(config_name)
     m = cfg["model"]
-    if m.get("head_type", "segformer") != "segformer":
-        raise NotImplementedError(f"head {m['head_type']!r} is not ported")
     device = torch.device(device)
     if checkpoint:
         model = build_segmentor(

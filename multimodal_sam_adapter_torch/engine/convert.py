@@ -10,7 +10,15 @@ one onto the port's `state_dict`. Layouts undone here:
 - the PixelShuffleUp kernel (C, 2, 2, O) -> ConvTranspose2d (C, O, 2, 2);
 - the fusion neck's gate/val halves -> the fused 2x-wide project_in and
   dwconv weights;
-- the twin ConvNeXt `branch_x` / `branch_y` trees -> `_x` / `_y` keys.
+- the twin ConvNeXt `branch_x` / `branch_y` trees -> `_x` / `_y` keys;
+- the Mask2Former head's separate q / k / v Dense layers -> the packed
+  `in_proj_weight` / `in_proj_bias` of nn.MultiheadAttention.
+
+The Mask2Former head's keys are the reference checkpoint's, those that the
+JAX package's engine/convert_m2f.py:convert_mask2former_head reads: a
+reference Mask2Former state dict loads into the port as it is, so the port
+needs no converter of its own for it (as it needs none for the full
+checkpoint).
 
 Every BatchNorm also gets a zero `num_batches_tracked`, as a checkpoint
 saved by PyTorch carries.
@@ -184,6 +192,100 @@ def segformer_head(p: Tree, stats: Tree, key: str):
     yield from _conv2d(p["conv_seg"], f"{key}.conv_seg")
 
 
+def _gn(tree: Tree, key: str):
+    yield f"{key}.weight", tree["gn"]["scale"]
+    yield f"{key}.bias", tree["gn"]["bias"]
+
+
+def _mha(tree: Tree, key: str):
+    """q / k / v / out Dense -> nn.MultiheadAttention's packed
+    `in_proj_weight` / `in_proj_bias` and `out_proj` under `<key>.attn`."""
+    qkv = ("q_proj", "k_proj", "v_proj")
+    yield f"{key}.attn.in_proj_weight", np.concatenate(
+        [_lin(tree[n]["kernel"]) for n in qkv], axis=0)
+    yield f"{key}.attn.in_proj_bias", np.concatenate(
+        [np.asarray(tree[n]["bias"]) for n in qkv], axis=0)
+    yield from _dense(tree["out_proj"], f"{key}.attn.out_proj")
+
+
+def _ffn(tree: Tree, key: str):
+    yield from _dense(tree["ffn1"], f"{key}.ffns.0.layers.0.0")
+    yield from _dense(tree["ffn2"], f"{key}.ffns.0.layers.1")
+
+
+def pixel_decoder(p: Tree, key: str):
+    """MSDeformAttnPixelDecoder subtree -> the reference keys."""
+    yield f"{key}.level_encoding.weight", p["level_encoding"]
+    for i in range(3):
+        yield from _conv2d(p[f"input_conv{i}"], f"{key}.input_convs.{i}.conv")
+        yield from _gn(p[f"input_norm{i}"], f"{key}.input_convs.{i}.gn")
+    i = 0
+    while f"encoder{i}" in p:
+        e, t = p[f"encoder{i}"], f"{key}.encoder.layers.{i}"
+        yield from msda(e["self_attn"], f"{t}.attentions.0")
+        yield from _ffn(e, t)
+        yield from _ln(e["norm1"], f"{t}.norms.0")
+        yield from _ln(e["norm2"], f"{t}.norms.1")
+        i += 1
+    yield from _conv2d(p["lateral4"], f"{key}.lateral_convs.0.conv")
+    yield from _gn(p["lateral4_norm"], f"{key}.lateral_convs.0.gn")
+    yield from _conv2d(p["output4"], f"{key}.output_convs.0.conv")
+    yield from _gn(p["output4_norm"], f"{key}.output_convs.0.gn")
+    yield from _conv2d(p["mask_feature"], f"{key}.mask_feature")
+
+
+def decoder_layer(p: Tree, key: str):
+    """DecoderLayer subtree -> `attentions.0` (cross), `attentions.1`
+    (self), `norms.{0,1,2}`, `ffns.0`."""
+    yield from _mha(p["cross_attn"], f"{key}.attentions.0")
+    yield from _mha(p["self_attn"], f"{key}.attentions.1")
+    for n in range(3):
+        yield from _ln(p[f"norm{n + 1}"], f"{key}.norms.{n}")
+    yield from _ffn(p, key)
+
+
+def _queries_out(p: Tree, key: str, norm: Tree):
+    yield from _ln(norm, f"{key}.transformer_decoder.post_norm")
+    yield from _dense(p["cls_head"], f"{key}.cls_embed")
+    for i, j in enumerate((0, 2, 4)):
+        yield from _dense(p[f"mask_mlp{i}"], f"{key}.mask_embed.{j}")
+
+
+def mask2former_decoder(d: Tree, key: str):
+    """Mask2FormerDecoder subtree -> the head-level reference keys: the
+    inverse of the decoder part of the JAX package's
+    engine/convert_m2f.py:convert_mask2former_head."""
+    for name in ("query_embed", "query_feat", "level_embed"):
+        yield f"{key}.{name}.weight", d[name]
+    i = 0
+    while f"layer{i}" in d:
+        yield from decoder_layer(d[f"layer{i}"],
+                                 f"{key}.transformer_decoder.layers.{i}")
+        i += 1
+    yield from _queries_out(d, key, d["decoder_norm"])
+
+
+def mask2former_head(p: Tree, key: str):
+    """Mask2FormerHead subtree -> the reference Mask2Former keys: the
+    inverse of engine/convert_m2f.py:convert_mask2former_head (q / k / v
+    packed into `in_proj`, conv kernels HWIO -> OIHW)."""
+    yield from pixel_decoder(p["pixel_decoder"], f"{key}.pixel_decoder")
+    yield from mask2former_decoder(p["decoder"], key)
+
+
+def maskformer_head(p: Tree, key: str):
+    """MaskFormerHead subtree -> the port's keys (the Mask2Former keys
+    where the modules coincide; the JAX package has no converter)."""
+    yield from pixel_decoder(p["pixel_decoder"], f"{key}.pixel_decoder")
+    yield f"{key}.query_embed.weight", p["query_embed"]
+    i = 0
+    while f"layer{i}" in p:
+        yield from decoder_layer(p[f"layer{i}"],
+                                 f"{key}.transformer_decoder.layers.{i}")
+        i += 1
+    yield from _queries_out(p, key, p["norm"])
+
+
 def backbone(p: Tree, stats: Tree, key: str,
              interaction_indexes: Sequence[Tuple[int, int]]):
     yield f"{key}.pos_embed", p["pos_embed"]
@@ -232,8 +334,9 @@ def state_dict_from_jax(variables: Dict[str, Tree],
     """{'params', 'batch_stats'} of the JAX EncoderDecoder (numpy leaves)
     -> the port's EncoderDecoder state_dict (reference checkpoint keys)."""
     p, s = variables["params"], variables["batch_stats"]
+    head = p["decode_head"]
     pairs = [*backbone(p["backbone"], s["backbone"], "backbone",
                        interaction_indexes),
-             *segformer_head(p["decode_head"], s["decode_head"],
-                             "decode_head")]
+             *(mask2former_head(head, "decode_head") if "decoder" in head
+               else segformer_head(head, s["decode_head"], "decode_head"))]
     return to_state_dict(pairs)

@@ -17,6 +17,11 @@ that the JAX module gives the same parameter.
   bias is the directional grid (ops/msda.py:306);
 - `level_embed` N(0, 1) (backbone.py:159); `conv_seg` N(0, 0.01)
   (segformer_head.py:96);
+- the Mask2Former head: its query, query-position and level embeddings
+  and the pixel decoder's level encoding N(0, 1); the packed q / k / v
+  projections `lecun_normal` (fan-in C, as each of the JAX package's three
+  Dense kernels) with zero biases; its MSDA, GroupNorms, LayerNorms,
+  Linear and conv layers by the rules above and below;
 - constants: the injectors' gamma `init_values` (adapter.py:141), the
   ConvNeXt layer scale 1.0 (the spatial prior builds its twin trunk with
   layer_scale_init_value=1.0, adapter.py:248), the neck's channel-attention
@@ -92,6 +97,13 @@ RULES: Tuple[Rule, ...] = (
      lambda w, c: const(0.0)),
     (r"(^|\.)(pos_embed|rel_pos_[hw])$", lambda w, c: const(0.0)),
     (r"(^|\.)level_embed$", lambda w, c: normal(1.0)),
+    # the Mask2Former head's embeddings (mask2former/transformer_decoder.py
+    # :85-97, pixel_decoder.py:69) and its packed q / k / v projections,
+    # three flax Dense layers of fan-in C in the JAX package
+    (r"(^|\.)(query_embed|query_feat|level_embed|level_encoding)\.weight$",
+     lambda w, c: normal(1.0)),
+    (r"(^|\.)in_proj_weight$", lambda w, c: lecun_normal(w)),
+    (r"(^|\.)in_proj_bias$", lambda w, c: const(0.0)),
     (r"(^|\.)injector\.gamma$", lambda w, c: const(c["init_values"])),
     (r"twin_conv\.stages_[xy]\.\d+\.\d+\.gamma$",
      lambda w, c: const(CONVNEXT_LAYER_SCALE)),

@@ -1,8 +1,12 @@
-"""EncoderDecoder: backbone + SegFormer head, logits resized to the input
+"""EncoderDecoder: backbone + decode head, logits resized to the input
 size. The counterpart of multimodal_sam_adapter_tpu/models/segmentor.py:
 `forward` is its `__call__` with train=False (eval mode only), `loss` its
 training loss, run in train mode (model.train()), also reached as
-`forward(img, gt)`.
+`forward(img, gt)`. The head is the SegFormer head (`head_type`
+'segformer', every shipped config) or the Mask2Former head
+('mask2former', models/mask2former/: semantic scores from the final
+queries' class x mask product; Hungarian-matched point losses over every
+decoder layer's predictions).
 
 Build models with `build_segmentor`: it constructs on the meta device (no
 random draw) and then either loads a state_dict or draws every parameter
@@ -19,23 +23,46 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..nn.layers import BiasFreeLayerNorm, LayerNorm2d, checkpoint
+from ..nn.layers import (BiasFreeLayerNorm, LayerNorm2d, checkpoint,
+                         fold_in)
 from ..utils.interpolate import resize_bilinear
 from .backbone import SAMAdapterBimodal
 from .init import init_weights_
 from .losses import ohem_cross_entropy
+from .mask2former import (Mask2FormerHead, draw_points, mask2former_loss,
+                          match_queries, semantic_inference)
 from .segformer_head import SegformerHead
+
+HEAD_TYPES = ("segformer", "mask2former")
 
 
 class EncoderDecoder(nn.Module):
     def __init__(self, num_classes: int = 25, head_channels: int = 512,
                  backbone_cfg: Optional[dict] = None,
-                 dropout_ratio: float = 0.1):
+                 dropout_ratio: float = 0.1, head_type: str = "segformer",
+                 head_cfg: Optional[dict] = None):
         super().__init__()
+        if head_type not in HEAD_TYPES:
+            raise ValueError(f"unknown head_type {head_type!r}")
+        self.num_classes = num_classes
+        self.head_type = head_type
         self.backbone = SAMAdapterBimodal(**(backbone_cfg or {}))
-        self.decode_head = SegformerHead(self.backbone.embed_dim,
-                                         num_classes, head_channels,
-                                         dropout_ratio=dropout_ratio)
+        if head_type == "mask2former":
+            self.decode_head = Mask2FormerHead(
+                self.backbone.embed_dim, num_classes, head_channels,
+                **(head_cfg or {}))
+        else:
+            self.decode_head = SegformerHead(self.backbone.embed_dim,
+                                             num_classes, head_channels,
+                                             dropout_ratio=dropout_ratio)
+
+    def _head_logits(self, feats):
+        """The head's NCHW logits at stride 4 (Mask2Former: the final
+        prediction's float32 semantic scores)."""
+        if self.head_type == "mask2former":
+            all_cls, all_masks = self.decode_head(feats)
+            return semantic_inference(all_cls[-1], all_masks[-1])
+        return self.decode_head(feats)
 
     def forward(self, img: torch.Tensor, gt: Optional[torch.Tensor] = None,
                 **loss_kw):
@@ -47,7 +74,7 @@ class EncoderDecoder(nn.Module):
             return self.loss(img, gt, **loss_kw)
         self._check_eval()
         feats = self.backbone.forward_features(img.permute(0, 3, 1, 2))
-        logits = resize_bilinear(self.decode_head(feats), img.shape[1:3])
+        logits = resize_bilinear(self._head_logits(feats), img.shape[1:3])
         return logits.permute(0, 2, 3, 1)
 
     def loss(self, img: torch.Tensor, gt: torch.Tensor,
@@ -61,8 +88,14 @@ class EncoderDecoder(nn.Module):
         records (the JAX package's nn.remat(_head_loss)): their float32
         full-resolution logits and softmax are not kept for the backward.
         In train mode every dropout draws from the key that
-        nn.layers.set_dropout_key set."""
+        nn.layers.set_dropout_key set.
+
+        The Mask2Former head takes `mask2former_loss` instead (the OHEM
+        arguments do not apply), not checkpointed, as the JAX package
+        runs it."""
         feats = self.backbone.forward_features(img.permute(0, 3, 1, 2))
+        if self.head_type == "mask2former":
+            return self._mask2former_loss(feats, gt, ignore_index)
 
         def head_loss(*feats):
             logits = resize_bilinear(self.decode_head(list(feats)),
@@ -75,6 +108,40 @@ class EncoderDecoder(nn.Module):
         if torch.is_grad_enabled():
             return checkpoint(head_loss, *feats, module=self.decode_head)
         return head_loss(*feats)
+
+    def _mask2former_loss(self, feats, gt, ignore_index):
+        """The mean of `mask2former_loss` over the predictions before the
+        first decoder layer and after each. Prediction i of sample b draws
+        its points from fold_in(fold_in(key, i), row), key the step's
+        (set_dropout_key), row b's index in the global batch. The head's
+        `pinned["assign"]`, when set, replaces the matching; `record`
+        keeps the assignments used. Returns (loss, the final prediction's
+        scores resized to the labels, NHWC, detached)."""
+        head = self.decode_head
+        if head.seed is None:
+            raise RuntimeError("no loss key: call set_dropout_key(model, "
+                               "key) before the Mask2Former loss")
+        all_cls, all_masks = head(feats)
+        B, Q = all_cls[0].shape[:2]
+        first = head.shard[0] * B
+        pinned = (head.pinned or {}).get("assign")
+        g = torch.Generator(device=gt.device)
+        total, used = 0.0, []
+        for i, (cls_l, mask_l) in enumerate(zip(all_cls, all_masks)):
+            key = fold_in(head.seed, i)
+            draws = [draw_points(g.manual_seed(fold_in(key, first + b)), Q)
+                     for b in range(B)]
+            assign = (pinned[i] if pinned is not None else match_queries(
+                cls_l, mask_l, gt, draws, self.num_classes, ignore_index))
+            used.append(assign)
+            total = total + mask2former_loss(
+                cls_l, mask_l, gt, draws, self.num_classes, ignore_index,
+                assign=assign)
+        head.record["assign"] = used
+        logits = semantic_inference(all_cls[-1].detach(),
+                                    all_masks[-1].detach())
+        logits = resize_bilinear(logits, gt.shape[1:3]).permute(0, 2, 3, 1)
+        return total / len(all_cls), logits
 
     def _check_eval(self):
         if self.training:
@@ -127,7 +194,9 @@ def build_segmentor(model_cfg: Dict, device, *,
         model = EncoderDecoder(num_classes=cfg["num_classes"],
                                head_channels=cfg["head_channels"],
                                backbone_cfg=cfg["backbone"],
-                               dropout_ratio=cfg.get("dropout_ratio", 0.1))
+                               dropout_ratio=cfg.get("dropout_ratio", 0.1),
+                               head_type=cfg.get("head_type", "segformer"),
+                               head_cfg=cfg.get("head"))
     model = model.to_empty(device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)

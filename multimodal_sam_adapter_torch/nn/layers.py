@@ -144,17 +144,29 @@ class DropPath(KeyedDropout):
         return (1,) * x.dim()
 
 
+class KeyedDraws:
+    """A module whose train-mode loss draws at random (the Mask2Former
+    head's point samples): `set_dropout_key` gives it the step's key
+    itself as `seed`, and `shard`, as it gives each `KeyedDropout` its
+    own."""
+    seed: Optional[int] = None
+    shard: Tuple[int, int] = (0, 1)
+
+
 def set_dropout_key(model: nn.Module, key: Optional[int],
                     shard: Tuple[int, int] = (0, 1)) -> None:
     """Seed every `KeyedDropout` of `model` for the next train-mode
     forward (and its recomputes): the i-th in module order draws from
     fold_in(key, i), for the rows of the global batch that rank `shard[0]`
-    of `shard[1]` holds (rank x B ... rank x B + B - 1). None unsets
-    them."""
+    of `shard[1]` holds (rank x B ... rank x B + B - 1). Every
+    `KeyedDraws` gets `key`. None unsets them."""
     drops = (m for m in model.modules() if isinstance(m, KeyedDropout))
     for i, m in enumerate(drops):
         m.seed = None if key is None else fold_in(key, i)
         m.shard = tuple(shard)
+    for m in model.modules():
+        if isinstance(m, KeyedDraws):
+            m.seed, m.shard = key, tuple(shard)
 
 
 def checkpoint(fn: Callable, *args, module: nn.Module):

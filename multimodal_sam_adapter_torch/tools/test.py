@@ -112,8 +112,6 @@ def _evaluate(args, device):
     ds = build_dataset(cfg["dataset"], args.data_root, test_mode=True)
     pipe = TestPipeline(cfg["test_pipeline"], cfg["dataset"]["modalities_ch"])
     m = cfg["model"]
-    if m.get("head_type", "segformer") != "segformer":
-        raise NotImplementedError(f"head {m['head_type']!r} is not ported")
     if args.checkpoint == "random":
         gen = torch.Generator(device=device).manual_seed(0)
         model = build_segmentor(m, device, generator=gen)

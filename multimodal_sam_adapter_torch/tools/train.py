@@ -147,8 +147,6 @@ def build_runner(cfg: Dict, train_ds, work_dir: str, *, device="cuda",
     device = torch.device(device)
     rank, world = rank_world()
     m = cfg["model"]
-    if m.get("head_type", "segformer") != "segformer":
-        raise NotImplementedError(f"head {m['head_type']!r} is not ported")
     loader = DataLoader(
         train_ds, TrainPipeline(cfg["train_pipeline"],
                                 cfg["dataset"]["modalities_ch"]),

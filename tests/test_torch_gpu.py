@@ -15,9 +15,10 @@ import torch
 
 from kernel_checks import (
     ATTENTION_RAGGED, CONVNEXT_RAGGED, CONVNEXT_STAGES, GRAD_TOLERANCES,
-    KERNELS, MSDA_RAGGED, PIXEL_SHUFFLE_RAGGED, TOLERANCES, attention_case,
-    convnext_case, convnext_delta_case, flagship_case, flagship_shapes,
-    function_check, msda_case, pixel_shuffle_case, plain_reference)
+    KERNELS, MSDA_PIXEL_DECODER, MSDA_RAGGED, PIXEL_SHUFFLE_RAGGED,
+    TOLERANCES, attention_case, convnext_case, convnext_delta_case,
+    flagship_case, flagship_shapes, function_check, msda_case,
+    msda_encoder_case, pixel_shuffle_case, plain_reference)
 from multimodal_sam_adapter_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -131,6 +132,23 @@ def test_msda_at_fmb_batch3_nonsquare_and_tiny_shapes(name, label, kw,
     g = torch.Generator(device=dev).manual_seed(4)
     fn, args = msda_case(name, DTYPES[dtype], g, **kw)
     _check_launch(name, fn, args, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("label,kw", MSDA_PIXEL_DECODER,
+                         ids=[label for label, _ in MSDA_PIXEL_DECODER])
+def test_msda_at_the_pixel_decoder_shapes(label, kw, dtype):
+    """K3 as the Mask2Former pixel decoder calls it: every token of the 3
+    levels queries them from its own pixel centre (Lq = S), at full width
+    (21504 tokens, 8 heads of D = 64) and at deliver_tiny_m2f's D = 4;
+    and its Function's gradients against the plain autodiff."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    fn, args = msda_encoder_case(DTYPES[dtype], g, **kw)
+    _check_launch("msda_multi_level", fn, args, DTYPES[dtype])
+    res = function_check(fn, args, g)
+    assert res["same_output"]
+    assert res["grad_rel_err"] <= GRAD_TOLERANCES[DTYPES[dtype]]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

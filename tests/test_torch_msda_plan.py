@@ -130,3 +130,54 @@ def test_one_batch_reference_points_equal_the_explicit_broadcast(name):
         one = fn(value[b:b + 1], shapes, ref, offs[b:b + 1],
                  logits[b:b + 1], heads, points)
         torch.testing.assert_close(got[b:b + 1], one, rtol=1e-6, atol=1e-6)
+
+
+# the Mask2Former pixel decoder's K3 (kernel_checks.MSDA_PIXEL_DECODER):
+# 21504 tokens querying their own 3 levels, 8 heads of D = 64; and
+# deliver_tiny_m2f's D = 4 at batch 2
+M2F = (1, 32 * 32 + 64 * 64 + 128 * 128, 8, 64, 3, 4)
+M2F_TINY = (2, 2 * 2 + 4 * 4 + 8 * 8, 8, 4, 3, 4)
+
+
+@pytest.mark.parametrize("dtype,vec", [(BF16, 8), (F32, 4)])
+def test_pixel_decoder_plan_takes_16_byte_loads(dtype, vec):
+    B, Lq, M, D, L, P = M2F
+    plan = msda_plan(B, Lq, M, D, L, P, dtype, 16)
+    assert plan.vec == vec and plan.lanes * plan.vec == D
+    assert plan.heads_per_block == M and plan.grid[2] == 1
+    assert plan.grid[0] * plan.grid[1] >= 4 * SMS
+    assert plan.grid[0] * plan.queries_per_block >= Lq
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_tiny_pixel_decoder_plan_covers_every_output_once(dtype):
+    B, Lq, M, D, L, P = M2F_TINY
+    plan = msda_plan(B, Lq, M, D, L, P, dtype, 16)
+    assert plan.vec == 4 and plan.lanes == 1
+    np.testing.assert_array_equal(_covered(B, Lq, M, D, plan), 1)
+
+
+def test_pixel_decoder_reference_points_take_the_kernel_layout():
+    """The encoder's points: each token's own pixel centre on its level,
+    broadcast over the 3 levels and held as one contiguous float32
+    (1, S, 3, 2) tensor (the kernel's layout for batch-broadcast points);
+    the kernel case's points are the same."""
+    from multimodal_sam_adapter_torch.models.adapter import (
+        _reference_points, reference_points)
+
+    levels = ((2, 2), (4, 4), (8, 8))
+    ref = _reference_points(levels, 3, torch.device("cpu"))
+    assert ref.shape == (1, 84, 3, 2) and ref.dtype == F32
+    assert ref.is_contiguous()
+    want = np.broadcast_to(reference_points(levels), (1, 84, 3, 2))
+    np.testing.assert_array_equal(ref.numpy(), want)
+    fn, args = kc.msda_encoder_case(F32, torch.Generator().manual_seed(2),
+                                    levels, 8, 32, batch=2)
+    value, shapes, case_ref, offs, logits, heads, points = args
+    torch.testing.assert_close(case_ref, ref, rtol=0, atol=0)
+    assert offs.shape == (2, 84, 8 * 3 * 4 * 2) and value.shape == (2, 84,
+                                                                    32)
+    full = case_ref.expand(2, -1, -1, -1).contiguous()
+    torch.testing.assert_close(fn(*args), fn(value, shapes, full, offs,
+                                             logits, heads, points),
+                               rtol=0, atol=0)
