@@ -177,9 +177,34 @@ Phases, one line each; any failure exits non-zero before the last line:
    same samples in memory; tools/train.py: one epoch of two micro-steps,
    one update, the micro-step's launches.
 
+14. rgb: the RGB-only segmentor, deliver_rgblidar with --cfg-options
+   dataset.modalities_ch=[3] dataset.mod_dir=[] dataset.mod_suffix=[]
+   model.backbone.modalities_ch=[3] (ViT-Adapter's conv-stem prior of
+   widths 48/96/192/192 in place of the twin ConvNeXt and the neck), and
+   the standalone SAM encoder. (a) The float32 1024x1024x3 forward,
+   weights from the seed, kernel vs plain: logits within 1e-3 x
+   max|logits|, K1-K6 at 20 / 4 / 4 / 6 / 0 / 1; 3 bf16 requests, class
+   maps >= 98% equal; K6 timed on the operands the conv stem's c1 gives it
+   (channels-last) and on the bimodal path's; the served request's device
+   busy ms, ms, idle share and peak GiB (utils/profiling.py) beside the
+   bimodal SegFormer path's in the same run. (b) One float32 and one bf16
+   micro-step (with_cp, drop path and dropout on) kernel vs plain: loss
+   1e-3 and gradients 1e-2 relative L2 in float32, bf16 cosine >= 0.98;
+   K1-K6 at 40 / 8 / 8 / 12 / 0 / 0; K6 refuses a grad-recording call.
+   (c) ImageEncoderViT at 1024^2, depth 24, from a SAM ViT-L checkpoint's
+   layout (`image_encoder.` keys beside `neck.*` and a mask decoder key)
+   through ingest_sam_pth(standalone=True): float32 tokens kernel vs plain
+   within 1e-3 x max|tokens|, bf16 cosine >= 0.999, K1 20 and K2 4, ms a
+   forward. (d) tools/test.py with the overrides on a DeLiVER tree without
+   its LiDAR directory (phase 12's writer): histograms bit-equal to
+   Evaluator.run over the same samples in memory; `load_bin_ann`, `shift`
+   and `setr_resize` on samples read from those files (setr_resize's
+   resize in the host core equal to its numpy twin); tools/train.py, one
+   update of two micro-steps, K1-K6 at 40 / 8 / 8 / 12 / 0 / 0 each.
+
 `python3 chip_smoke.py --phase ddp` runs phases 1, 2 and 11 alone (the
 four-card run); `--phase files` runs phases 1, 2 and 12; `--phase m2f`
-phases 1, 2 and 13.
+phases 1, 2 and 13; `--phase rgb` phases 1, 2 and 14.
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -259,6 +284,18 @@ PER_M2F_FORWARD = dict(PER_FORWARD, msda_multi_level=(
 PER_M2F_MICRO_STEP = dict(PER_MICRO_STEP, msda_multi_level=(
     PER_MICRO_STEP["msda_multi_level"] + M2F_ENCODER_LAYERS))
 M2F_ACCUM = 2
+# phase 14: the RGB-only segmentor, deliver_rgblidar under these
+# --cfg-options (one modality: ViT-Adapter's conv stem in place of the twin
+# ConvNeXt and the neck, so no K5), and the standalone SAM encoder (K1 in
+# its 20 windowed blocks, K2 in its 4 global ones)
+RGB_ONLY = {"dataset.modalities_ch": "[3]", "dataset.mod_dir": "[]",
+            "dataset.mod_suffix": "[]", "model.backbone.modalities_ch": "[3]"}
+PER_RGB_FORWARD = dict(PER_FORWARD, convnext_block=0)
+PER_RGB_MICRO_STEP = dict(PER_MICRO_STEP, convnext_block=0)
+PER_ENCODER_FORWARD = dict({k: 0 for k in PER_FORWARD},
+                           window_attention=20, flash_attention=4)
+# bf16 tokens of the encoder's kernel path against its plain path
+ENCODER_COS_MIN = 0.999
 # bf16: the gradients held one by one, where each kernel's backward lands
 TRAIN_WATCHED = (
     "backbone.blocks.0.attn.qkv.weight",          # K1's block
@@ -271,6 +308,9 @@ TRAIN_WATCHED = (
     "backbone.interactions.0.extractor.attn.attention_weights.weight",
     "backbone.spm.twin_conv.stages_x.2.0.pointwise_conv1.weight",      # K5
 )
+# the RGB-only segmentor's: K1-K4's, and the conv stem's first and last
+RGB_WATCHED = TRAIN_WATCHED[:-1] + ("backbone.spm.stem.0.weight",
+                                    "backbone.spm.conv4.0.weight")
 
 class PhaseError(RuntimeError):
     pass
@@ -450,9 +490,10 @@ class K6Operands:
     hands them over, by wrapping the backbone's reference to the wrapper
     (which still counts its launches)."""
 
-    def __init__(self):
+    def __init__(self, keep=False):
         import multimodal_sam_adapter_torch.models.backbone as backbone
-        self.module, self.seen = backbone, []
+        self.module, self.seen, self.keep = backbone, [], keep
+        self.first = None
 
     def __enter__(self):
         real = self.real = self.module.pixel_shuffle_up_bn
@@ -462,6 +503,10 @@ class K6Operands:
                 shape=list(t.shape), strides=list(t.stride()),
                 dtype=str(t.dtype).replace("torch.", ""))
                 for name, t in (("c2", c2), ("c1", c1), ("x1", x1))})
+            if self.keep and self.first is None:
+                # the operands as handed over, for timing K6 on them
+                self.first = tuple(t.clone() for t in (c2, weight, c1, x1,
+                                                       scale, shift))
             return real(c2, weight, c1, x1, scale, shift)
 
         self.module.pixel_shuffle_up_bn = record
@@ -529,7 +574,10 @@ def phase_kernels(torch, kc):
     return rows
 
 
-def phase_forward(torch, kernels, model, x):
+def phase_forward(torch, kernels, model, x, expect=PER_FORWARD,
+                  phase="forward"):
+    """The float32 forward through the kernels (its launches: `expect`)
+    against the plain versions. Returns the launches."""
     with torch.no_grad(), K6Operands() as k6:
         kernels.reset_launches()
         got = model(x)
@@ -537,17 +585,18 @@ def phase_forward(torch, kernels, model, x):
         counts = dict(kernels.LAUNCHES)
         with kernels.plain_kernels():
             want = model(x)
-    k6.report("forward")
+    k6.report(phase)
     check(got.shape == (1, 1024, 1024, 25), f"logits shape {got.shape}")
     check(torch.isfinite(got).all().item(), "non-finite float32 logits")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    line("forward", dtype="f32", logits_max_abs=f"{scale:.4e}",
+    line(phase, dtype="f32", logits_max_abs=f"{scale:.4e}",
          max_abs_err=f"{err:.3e}", tol=f"{FORWARD_RTOL_OF_MAX}*max|logits|",
          launches=compact(counts))
     check(err <= FORWARD_RTOL_OF_MAX * scale,
-          "kernel path and plain path logits disagree")
-    check(counts == PER_FORWARD, f"launch counts {counts} != {PER_FORWARD}")
+          f"{phase}: kernel path and plain path logits disagree")
+    check(counts == expect, f"{phase}: launch counts {counts} != {expect}")
+    return counts
 
 
 def agreement(a, b):
@@ -768,10 +817,10 @@ def phase_cut(torch, kernels, engine, block_cls, rng):
                               f"{AGREE_MIN} of pixels")
 
 
-def train_batch(torch, g, classes):
+def train_batch(torch, g, classes, channels=6):
     """One 1024^2 micro-batch on the card: a normalised-scale input and
     labels with ~5% ignored (255) pixels."""
-    img = torch.randn((1, 1024, 1024, 6), generator=g, device="cuda")
+    img = torch.randn((1, 1024, 1024, channels), generator=g, device="cuda")
     gt = torch.randint(0, classes, (1, 1024, 1024), generator=g,
                        device="cuda")
     gt[torch.rand((1, 1024, 1024), generator=g, device="cuda") < 0.05] = 255
@@ -807,14 +856,16 @@ def cosine(a, b, names):
     return dot / (na * nb) ** 0.5
 
 
-def compare_paths(torch, kernels, model, img, gt, tag, dtype, ref=None):
+def compare_paths(torch, kernels, model, img, gt, tag, dtype, ref=None,
+                  watched=TRAIN_WATCHED, expect=PER_MICRO_STEP,
+                  phase="train"):
     """One micro-step through the kernels and one through the plain
     versions on the same weights, batch and dropout key. bf16 takes `ref`,
-    the float32 plain path's gradients, for the watched tensors on which
+    the float32 plain path's gradients, for the `watched` tensors on which
     bf16 autocast itself moves the gradient further than TRAIN_COS_EACH:
     there the kernel path must be as close to the float32 gradient as the
-    plain bf16 path is (within TRAIN_COS_SLACK). Returns (launches, the
-    plain path's gradients)."""
+    plain bf16 path is (within TRAIN_COS_SLACK). The launches must be
+    `expect`. Returns (launches, the plain path's gradients)."""
     kernels.reset_launches()
     loss_k = micro_step(torch, kernels, model, img, gt, 1, dtype, False)
     torch.cuda.synchronize()
@@ -829,43 +880,42 @@ def compare_paths(torch, kernels, model, img, gt, tag, dtype, ref=None):
     rel = (sum((g_k[n] - g_p[n]).square().sum().item() for n in names)
            / sum(g_p[n].square().sum().item() for n in names)) ** 0.5
     cos = cosine(g_k, g_p, names)
-    each = {n: cosine(g_k, g_p, [n]) for n in TRAIN_WATCHED}
+    each = {n: cosine(g_k, g_p, [n]) for n in watched}
     to_f32 = {}
     if ref is not None:
         to_f32 = {n: (cosine(g_k, ref, [n]), cosine(g_p, ref, [n]))
-                  for n in TRAIN_WATCHED}
-    short = {n: n.replace("backbone.", "") for n in TRAIN_WATCHED}
-    line("train", dtype=tag, loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
+                  for n in watched}
+    short = {n: n.replace("backbone.", "") for n in watched}
+    line(phase, dtype=tag, loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
          loss_rel_err=f"{loss_rel:.3e}", grad_rel_l2=f"{rel:.3e}",
          grad_cosine=f"{cos:.6f}", watched_cosine=compact(
              {short[n]: round(v, 5) for n, v in each.items()}),
          finite=all(torch.isfinite(t).all().item() for t in g_k.values()),
          launches=compact(counts))
     if to_f32:
-        line("train", dtype=tag, watched_cosine_to_f32_kernel_plain=compact(
+        line(phase, dtype=tag, watched_cosine_to_f32_kernel_plain=compact(
             {short[n]: [round(k, 5), round(p, 5)]
              for n, (k, p) in to_f32.items()}),
              all_cosine_to_f32_kernel_plain=compact(
                  [round(cosine(g_k, ref, names), 5),
                   round(cosine(g_p, ref, names), 5)]))
-    check(counts == PER_MICRO_STEP,
-          f"train {tag}: launches {counts} != {PER_MICRO_STEP}")
+    check(counts == expect, f"{phase} {tag}: launches {counts} != {expect}")
     check(loss_rel <= TRAIN_LOSS_RTOL[tag],
-          f"train {tag}: losses {lk} (kernel) vs {lp} (plain)")
+          f"{phase} {tag}: losses {lk} (kernel) vs {lp} (plain)")
     check(all(torch.isfinite(t).all().item() for t in g_k.values()),
-          f"train {tag}: non-finite gradients")
+          f"{phase} {tag}: non-finite gradients")
     if dtype is None:
         check(rel <= TRAIN_GRAD_REL_F32,
-              f"train f32: gradients {rel:.3e} from plain > "
+              f"{phase} f32: gradients {rel:.3e} from plain > "
               f"{TRAIN_GRAD_REL_F32}")
     else:
-        check(cos >= TRAIN_COS_ALL, f"train bf16: cosine {cos:.4f} < "
+        check(cos >= TRAIN_COS_ALL, f"{phase} bf16: cosine {cos:.4f} < "
                                     f"{TRAIN_COS_ALL}")
         for n, v in each.items():
             k32, p32 = to_f32[n]
             check(v >= TRAIN_COS_EACH or (p32 < TRAIN_COS_EACH and
                                           k32 >= p32 - TRAIN_COS_SLACK),
-                  f"train bf16: {short[n]}: cosine {v:.4f} to the plain "
+                  f"{phase} bf16: {short[n]}: cosine {v:.4f} to the plain "
                   f"path; to the float32 gradient {k32:.4f} (kernel), "
                   f"{p32:.4f} (plain)")
     return counts, g_p
@@ -2067,10 +2117,10 @@ def _png_writer(written):
     return png
 
 
-def write_deliver_tree(root, rng, png):
+def write_deliver_tree(root, rng, png, aux=True):
     """A DeLiVER tree under root/deliver: the FILES_DELIVER_STEMS 1024^2
-    samples in each split (BGR, 3-channel LiDAR, 25-class labels with 5%
-    ignored). Returns its root."""
+    samples in each split (BGR, 3-channel LiDAR unless not `aux`, 25-class
+    labels with 5% ignored). Returns its root."""
     from multimodal_sam_adapter_torch.data.datasets import DELIVER_PALETTE
 
     deliver = os.path.join(root, "deliver", "samples")
@@ -2079,6 +2129,8 @@ def write_deliver_tree(root, rng, png):
         arrays = {"images": _scene(rng, gt, DELIVER_PALETTE, 12),
                   "lidar": _scene(rng, gt[::-1], DELIVER_PALETTE, 30),
                   "annotations": gt}
+        if not aux:
+            del arrays["lidar"]
         for split in ("test", "training", "validation"):
             for d, arr in arrays.items():
                 suffix = {"images": "rgb", "lidar": "lidar",
@@ -2201,6 +2253,47 @@ class _ListDataset:
         return dict(s, meta=dict(s["meta"]))
 
 
+def stride0_layouts(torch, model, arr):
+    """Where a bf16 B = 1 input whose batch axis has numpy's stride 0
+    (`arr[None]`) parts from the same input with torch's strides
+    (`torch.from_numpy(arr)[None]`): each one's strides on the card, and
+    whether its NCHW view is channels-last (what cuDNN's layout choice
+    reads); then the first convolutions the input meets, the twin's RGB
+    and auxiliary stems and the ViT patch embed, on each: their outputs'
+    strides and the largest difference of the two outputs, and K5's
+    operand after the stem's LayerNorm (its strides, equal or not)."""
+    bb = model.backbone
+    tw = bb.spm.twin_conv
+    convs = {"rgb_stem": (tw.downsample_layers_x[0][0], slice(0, 3)),
+             "aux_stem": (tw.downsample_layers_y[0][0], slice(3, None)),
+             "patch_embed": (bb.patch_embed.proj, slice(0, 3))}
+    seen = {}
+    with torch.inference_mode():
+        for name, t in (("stride0", torch.from_numpy(arr[None])),
+                        ("torch", torch.from_numpy(arr)[None])):
+            x = t.to(device="cuda", dtype=torch.bfloat16)
+            view = x.permute(0, 3, 1, 2)
+            outs = {k: conv(view[:, ch]) for k, (conv, ch) in convs.items()}
+            ln = tw.downsample_layers_x[0][1]
+            k5_in = torch.nn.functional.layer_norm(
+                outs["rgb_stem"].permute(0, 2, 3, 1), ln.weight.shape,
+                ln.weight, ln.bias, ln.eps).contiguous()
+            seen[name] = dict(x=x, outs=outs, k5_in=k5_in)
+    rep = {name: dict(strides=list(d["x"].stride()),
+                      channels_last=d["x"].permute(0, 3, 1, 2).is_contiguous(
+                          memory_format=torch.channels_last),
+                      out_strides={k: list(v.stride())
+                                   for k, v in d["outs"].items()},
+                      k5_in_strides=list(d["k5_in"].stride()))
+           for name, d in seen.items()}
+    a, b = seen["stride0"], seen["torch"]
+    rep["max_abs_diff"] = {k: (a["outs"][k].float() - b["outs"][k].float())
+                           .abs().max().item() for k in convs}
+    rep["k5_in_max_abs_diff"] = (a["k5_in"].float() - b["k5_in"].float()
+                                 ).abs().max().item()
+    return rep
+
+
 def phase_files(torch, kernels, smi):
     """Phase 12: the entries on image files at full width. Returns the
     launches of (c), the eval entry's run from files."""
@@ -2287,6 +2380,8 @@ def phase_files(torch, kernels, smi):
                                               info["mod"][0])
         stride0 = handle.engine.predict(torch.from_numpy(arr[None]))[0]
         stride0_agree = float((stride0.numpy() == api_pred).mean())
+        stride0_convs = stride0_layouts(torch, handle.model, arr)
+        line("files", stride0_inputs=compact(stride0_convs))
         check(np.array_equal(api_pred, want) and api_counts == PER_FORWARD,
               f"files: inference_segmentor's class map agrees with the test "
               f"entry's on {(api_pred == want).mean():.6f}, launches "
@@ -2750,17 +2845,381 @@ def phase_m2f(torch, kernels, smi, kc):
     return fwd, step, k3
 
 
+def rgb_config():
+    """deliver_rgblidar with the RGB-only overrides (RGB_ONLY): one
+    modality, so the conv-stem prior (widths 48/96/192/192) in place of
+    the twin ConvNeXt and the neck, as the entries build it from
+    `--cfg-options`."""
+    from multimodal_sam_adapter_torch.configs.registry import (
+        apply_overrides, get_config)
+
+    return apply_overrides(get_config("deliver_rgblidar"), dict(RGB_ONLY))
+
+
+def check_k6_operands(torch, kc, k6, tag):
+    """K6 on the operands the backbone handed it in a served forward
+    (their layouts as they came) against its plain version, timed in
+    turns with it (check_case). Returns K6's ms there."""
+    from multimodal_sam_adapter_torch.ops.pixel_shuffle import (
+        pixel_shuffle_up_bn)
+
+    args = k6.first
+    line("rgb", kernel="pixel_shuffle_up_bn", operands=tag,
+         c1_channels_last=args[2].is_contiguous(
+             memory_format=torch.channels_last))
+    return check_case(torch, kc, "pixel_shuffle_up_bn", tag + "_operands",
+                      (pixel_shuffle_up_bn, args), args[0].dtype,
+                      "bf16")["ms"]
+
+
+def serve_profile(torch, engine, img, name):
+    """Device busy, unprofiled ms and idle share of one served request
+    (utils/profiling.py, 3 calls, 3 repeats), and the peak memory."""
+    from multimodal_sam_adapter_torch.utils.profiling import profile_calls
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = profile_calls(lambda: engine.predict(img), 3,
+                        Path(__file__).resolve().parent / "build"
+                        / "profiles" / f"{name}_serve.json", repeats=3)
+    fams = list(res["family_ms"].items())[:5]
+    return dict(busy_ms=res["busy_ms"], ms=res["unprofiled_ms"],
+                idle_share=res["idle_share"],
+                launches=res["kernel_launches"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                top_families_ms={k: round(v, 3) for k, v in fams})
+
+
+def rgb_serve(torch, kernels, kc, cfg, g, smi):
+    """(a): the float32 forward kernel vs plain, three bf16 requests, K6
+    on the operands the conv stem's c1 gives it, and the served request's
+    busy, idle share and peak beside the bimodal (SegFormer) path's in
+    this run. Returns the launches of one forward."""
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.engine.inference import InferenceEngine
+    from multimodal_sam_adapter_torch.models.adapter import (
+        SpatialPriorModule)
+    from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
+
+    model = build_segmentor(cfg["model"], "cuda", generator=g)
+    spm = model.backbone.spm
+    check(type(spm) is SpatialPriorModule
+          and spm.stem[0].out_channels == 48
+          and spm.conv4[0].out_channels == 192,
+          "rgb: not the conv-stem prior of conv_inplane 48")
+    imgs = [torch.randn((1, 1024, 1024, 3), generator=g, device="cuda")
+            for _ in range(REQUESTS)]
+    counts = phase_forward(torch, kernels, model, imgs[0], PER_RGB_FORWARD,
+                           "rgb")
+    model = model.to(torch.bfloat16)
+    engine = InferenceEngine(model, cfg["test_cfg"])
+    bf = [x.to(torch.bfloat16) for x in imgs]
+    phase_serve(torch, kernels, engine, bf, PER_RGB_FORWARD, "rgb")
+    with torch.inference_mode(), K6Operands(keep=True) as k6:
+        engine.predict(bf[0])
+    k6_ms = check_k6_operands(torch, kc, k6, "rgb_only")
+    prof = {"rgb_only": serve_profile(torch, engine, bf[0], "rgb_only")}
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    bimodal = get_config("deliver_rgblidar")
+    model = _build_bf16(torch, build_segmentor, bimodal["model"], g)
+    engine = InferenceEngine(model, bimodal["test_cfg"])
+    x6 = torch.randn((1, 1024, 1024, 6), generator=g, device="cuda").to(
+        torch.bfloat16)
+    with torch.inference_mode(), K6Operands(keep=True) as k6:
+        engine.predict(x6)
+    k6_ms_bimodal = check_k6_operands(torch, kc, k6, "bimodal")
+    prof["bimodal"] = serve_profile(torch, engine, x6, "bimodal")
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    line("rgb", part="a", dtype="bf16", served=compact(
+        {k: {n: (round(v, 3) if isinstance(v, float) else v)
+             for n, v in d.items()} for k, d in prof.items()}),
+         k6_ms=compact({"rgb_only": round(k6_ms, 4),
+                        "bimodal": round(k6_ms_bimodal, 4)}),
+         card=repr(smi))
+    return counts, prof, k6_ms
+
+
+def rgb_train(torch, kernels, cfg, g):
+    """(b): one float32 and one bf16 micro-step through the kernels
+    against the plain versions (the config's train mode: with_cp, drop
+    path and dropout on). Returns the launches of one micro-step."""
+    from multimodal_sam_adapter_torch.engine.train import init_train_state
+
+    state = init_train_state(
+        cfg["model"], "cuda", seed=SEED,
+        optimizer_kwargs=dict(cfg["optimizer"],
+                              grad_accum_steps=cfg["data"]["grad_accum"]),
+        init="random")
+    model = state.model
+    check(model.training and model.backbone.with_cp,
+          "rgb: not the config's train mode")
+    img, gt = train_batch(torch, g, cfg["model"]["num_classes"], channels=3)
+    _, ref = compare_paths(torch, kernels, model, img, gt, "f32", None,
+                           watched=RGB_WATCHED, expect=PER_RGB_MICRO_STEP,
+                           phase="rgb")
+    counts, _ = compare_paths(torch, kernels, model, img, gt, "bf16",
+                              torch.bfloat16, ref, watched=RGB_WATCHED,
+                              expect=PER_RGB_MICRO_STEP, phase="rgb")
+    del ref, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sam_checkpoint(torch, path, g):
+    """A SAM ViT-L checkpoint's layout, as SAM's own file holds it: the
+    encoder under `image_encoder.` (24 blocks, width 1024, 16 heads,
+    windows of 14, global blocks 5/11/17/23) beside its `neck.*` and a
+    mask decoder key. Weights N(0, 0.05), norm gains 1 + N(0, 0.05), from
+    the seed; saved to `path`."""
+    from multimodal_sam_adapter_torch.models.sam_vit import ImageEncoderViT
+
+    with torch.device("meta"):
+        enc = ImageEncoderViT()
+    sd = {}
+    for name, p in enc.state_dict().items():
+        t = torch.randn(p.shape, generator=g, device="cuda") * 0.05
+        if name.endswith(("norm1.weight", "norm2.weight")):
+            t += 1.0
+        sd["image_encoder." + name] = t.cpu()
+    for key, shape in (("0.weight", (256, 1024, 1, 1)), ("1.weight", (256,)),
+                       ("1.bias", (256,)), ("2.weight", (256, 256, 3, 3)),
+                       ("3.weight", (256,)), ("3.bias", (256,))):
+        sd[f"image_encoder.neck.{key}"] = torch.zeros(shape)
+    sd["mask_decoder.iou_token.weight"] = torch.zeros(1, 256)
+    torch.save(sd, path)
+    return len(sd)
+
+
+def encoder_phase(torch, kernels, kc, g, work):
+    """(c): ImageEncoderViT at 1024^2, depth 24, from a SAM-layout file
+    through ingest_sam_pth(standalone=True): float32 kernel vs plain,
+    bf16 kernel vs plain (cosine), the launches of one forward, ms a
+    forward (CUDA events). Returns the launches."""
+    from multimodal_sam_adapter_torch.engine.checkpoint import ingest_sam_pth
+    from multimodal_sam_adapter_torch.models.sam_vit import ImageEncoderViT
+
+    path = os.path.join(work, "sam_vit_l.pth")
+    n_keys = sam_checkpoint(torch, path, g)
+    with torch.device("meta"):
+        enc = ImageEncoderViT()
+    enc = enc.to_empty(device="cuda")
+    enc.load_state_dict(ingest_sam_pth(path, standalone=True), strict=True)
+    enc.eval()
+    x = torch.randn((1, 3, 1024, 1024), generator=g, device="cuda")
+
+    def run(model, inp):
+        with torch.inference_mode():
+            return model(inp)
+
+    kernels.reset_launches()
+    got, Hp, Wp = run(enc, x)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    with kernels.plain_kernels():
+        want, _, _ = run(enc, x)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ms = {}
+    for tag in ("f32", "bf16"):
+        if tag == "bf16":
+            enc = enc.to(torch.bfloat16)
+            x = x.to(torch.bfloat16)
+            got_b, _, _ = run(enc, x)
+            with kernels.plain_kernels():
+                want_b, _, _ = run(enc, x)
+            a, b = got_b.float().flatten(), want_b.float().flatten()
+            cos = (a @ b / (a.norm() * b.norm())).item()
+            cos32 = (a @ want.flatten() / (a.norm() * want.norm())).item()
+        ms[tag] = kc.time_ms(lambda: run(enc, x), (), iters=5, warmup=1)
+        with kernels.plain_kernels():
+            ms["plain_" + tag] = kc.time_ms(lambda: run(enc, x), (),
+                                              iters=5, warmup=1)
+    line("rgb", part="c", model="ImageEncoderViT", input="1x3x1024x1024",
+         grid=f"{Hp}x{Wp}", ckpt_keys=n_keys, tokens=list(got.shape),
+         f32_max_abs_err=f"{err:.3e}", tokens_max_abs=f"{scale:.4e}",
+         tol=f"{FORWARD_RTOL_OF_MAX}*max|tokens|",
+         bf16_cosine_to_plain=f"{cos:.6f}",
+         bf16_cosine_to_f32=f"{cos32:.6f}",
+         ms=compact({k: round(v, 3) for k, v in ms.items()}),
+         launches=compact(counts))
+    check(tuple(got.shape) == (1, 4096, 1024) and (Hp, Wp) == (64, 64),
+          f"encoder: tokens {tuple(got.shape)}, grid {Hp}x{Wp}")
+    check(torch.isfinite(got).all().item(), "encoder: non-finite tokens")
+    check(err <= FORWARD_RTOL_OF_MAX * scale,
+          "encoder: kernel and plain tokens disagree")
+    check(cos >= ENCODER_COS_MIN, f"encoder: bf16 cosine {cos:.6f} < "
+                                  f"{ENCODER_COS_MIN}")
+    check(counts == PER_ENCODER_FORWARD,
+          f"encoder: launches {counts} != {PER_ENCODER_FORWARD}")
+    del enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def rgb_entries(torch, kernels, smi, work):
+    """(d): tools/test.py and one update of tools/train.py with the
+    RGB-only overrides on a DeLiVER tree without its LiDAR directory
+    (phase 12's writer); the unused transforms on samples read from those
+    files. Returns the test entry's launches."""
+    from multimodal_sam_adapter_torch.data import pipelines as pl
+    from multimodal_sam_adapter_torch.data import TestPipeline
+    from multimodal_sam_adapter_torch.engine.evaluator import Evaluator
+    from multimodal_sam_adapter_torch.tools import test as test_tool
+    from multimodal_sam_adapter_torch.tools import train as train_tool
+
+    opts = ["--cfg-options", *(f"{k}={v}" for k, v in RGB_ONLY.items())]
+    deliver = write_deliver_tree(work, np.random.default_rng(SEED + 14),
+                                 _png_writer({}), aux=False)
+    check(not os.path.exists(os.path.join(deliver, "samples", "lidar")),
+          "rgb: the tree has a LiDAR directory")
+    cfg = rgb_config()
+    with _Recorder(torch) as rec:
+        kernels.reset_launches()
+        test_tool.main(["deliver_rgblidar", "random", "--data-root",
+                        deliver, "--out-dir", work] + opts)
+        counts = dict(kernels.LAUNCHES)
+        ev = rec.runs[0]["ev"]
+        pipe = TestPipeline(cfg["test_pipeline"],
+                            cfg["dataset"]["modalities_ch"])
+        samples = [ev.dataset[i] for i in range(len(ev.dataset))]
+        mem = Evaluator(ev.engine, _ListDataset(samples, ev.dataset),
+                        ev.num_classes, case_aware=True).run(
+            pipeline=pipe, progress_every=0)
+    res, entry_ms = rec.runs[0]["res"], rec.runs[0]["ms"]
+    n = len(ev.dataset)
+    expect = {k: n * v for k, v in PER_RGB_FORWARD.items()}
+    check(counts == expect, f"rgb: test entry launches {counts} != {expect}")
+    check(samples[0]["img"].shape == (1024, 1024, 3)
+          and ev.dataset.mod_dirs == [], "rgb: the entry read an auxiliary "
+                                         "modality")
+    for key in ("flat", "nested"):
+        check(np.array_equal(res["payload"][key], mem["payload"][key]),
+              f"rgb: the entry's {key} histograms differ from the "
+              f"in-memory Evaluator's")
+
+    # the unused transforms on a sample read from the files
+    info = ev.dataset.infos[0]
+    t = time.perf_counter()
+    ann = pl.load_bin_ann(info["ann"])
+    bin_ms = (time.perf_counter() - t) * 1e3
+    want = pl.load_annotation(info["ann"])
+    want[want == 255] = 1
+    check(np.array_equal(ann, want), "rgb: load_bin_ann of a gray label "
+                                     "file is not its labels, 255 -> 1")
+    rng = np.random.default_rng(SEED)
+    t = time.perf_counter()
+    shifted = pl.shift(dict(samples[0]), rng, 32.5, 17.25, prob=1.0,
+                       seg_pad_val=255)
+    shift_ms = (time.perf_counter() - t) * 1e3
+    check(shifted["img"].shape == samples[0]["img"].shape
+          and shifted["gt"].dtype == np.uint8
+          and np.isfinite(shifted["img"]).all()
+          and set(np.unique(shifted["gt"])) <= set(np.unique(
+              samples[0]["gt"])) | {255}, "rgb: shift's sample")
+    setr = {}
+    for native in (True, False):
+        t = time.perf_counter()
+        setr[native] = pl.setr_resize(
+            dict(samples[0]), np.random.default_rng(SEED),
+            img_scale=(2048, 512), ratio_range=(0.5, 2.0),
+            crop_size=512, setr_multi_scale=True, native=native)
+        setr[f"ms_{native}"] = (time.perf_counter() - t) * 1e3
+    check(np.array_equal(setr[True]["img"], setr[False]["img"])
+          and np.array_equal(setr[True]["gt"], setr[False]["gt"]),
+          "rgb: setr_resize in the host core differs from its numpy twin")
+    del ev, rec, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = []
+    real_build = train_tool.build_runner
+
+    def instrumented(*a, **kw):
+        runner = real_build(*a, **kw)
+        step = runner.train_step
+
+        def counted_step(state, batch):
+            before = dict(kernels.LAUNCHES)
+            out = step(state, batch)
+            steps.append(dict(loss=out["loss"].item(), launches={
+                k: kernels.LAUNCHES[k] - before[k] for k in before}))
+            return out
+
+        runner.train_step = counted_step
+        return runner
+
+    train_tool.build_runner = instrumented
+    try:
+        kernels.reset_launches()
+        runner = train_tool.main([
+            "deliver_rgblidar", "--data-root", deliver, "--work-dir",
+            os.path.join(work, "train"), "--max-epochs", "1"]
+            + opts + ["data.grad_accum=2"])
+    finally:
+        train_tool.build_runner = real_build
+    losses = [s["loss"] for s in steps]
+    check(len(steps) == 2 and runner.state.optimizer.updates == 1
+          and all(np.isfinite(v) for v in losses)
+          and all(s["launches"] == PER_RGB_MICRO_STEP for s in steps),
+          f"rgb: train entry micro-steps {len(steps)}, updates "
+          f"{runner.state.optimizer.updates}, losses {losses}, launches "
+          f"{[s['launches'] for s in steps]}")
+    line("rgb", part="d", samples=n, histograms_bit_equal=True,
+         eval_ms_per_img_entry=f"{entry_ms:.2f}",
+         test_launches=compact(counts),
+         load_bin_ann_ms=f"{bin_ms:.2f}", shift_ms=f"{shift_ms:.2f}",
+         setr_resize_ms=compact({"core": round(setr["ms_True"], 2),
+                                 "numpy": round(setr["ms_False"], 2)}),
+         setr_shape=list(setr[True]["img"].shape),
+         train_losses=compact([round(v, 5) for v in losses]),
+         train_launches=compact([s["launches"] for s in steps]),
+         card=repr(smi))
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_rgb(torch, kernels, smi, kc):
+    """Phase 14: the RGB-only segmentor at full width and the standalone
+    SAM encoder. Returns the launches of one forward, one micro-step and
+    one encoder forward, the served profiles and K6's ms on the RGB-only
+    operands."""
+    import shutil
+    import tempfile
+
+    cfg = rgb_config()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    check_autograd(torch, kc, "pixel_shuffle_up_bn")
+    fwd, prof, k6_ms = rgb_serve(torch, kernels, kc, cfg, g, smi)
+    step = rgb_train(torch, kernels, cfg, g)
+    work = tempfile.mkdtemp(prefix="msa_rgb_")
+    try:
+        enc, enc_ms = encoder_phase(torch, kernels, kc, g, work)
+        rgb_entries(torch, kernels, smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(forward=fwd, micro_step=step, encoder=enc, encoder_ms=enc_ms,
+                served=prof, k6_ms=k6_ms)
+
+
 def main(phases=None):
     """Every phase; with `phases` == ["ddp"], phases 1, 2 and 11 alone
     (the four-card run: phase 11 is what there is to see across cards);
     with ["files"], phases 1, 2 and 12; with ["m2f"], phases 1, 2 and
-    13."""
+    13; with ["rgb"], phases 1, 2 and 14."""
     import torch
 
     kind, smi = phase_device(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import kernel_checks as kc
-    if phases in (["ddp"], ["files"], ["m2f"]):
+    if phases in (["ddp"], ["files"], ["m2f"], ["rgb"]):
         from multimodal_sam_adapter_torch.ops import kernels
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2768,6 +3227,8 @@ def main(phases=None):
         phase_build(kernels)
         if phases == ["m2f"]:
             phase_m2f(torch, kernels, smi, kc)
+        elif phases == ["rgb"]:
+            phase_rgb(torch, kernels, smi, kc)
         else:
             (phase_ddp if phases == ["ddp"] else phase_files)(torch, kernels,
                                                               smi)
@@ -2831,6 +3292,9 @@ def main(phases=None):
     gc.collect()
     torch.cuda.empty_cache()
     m2f_counts, m2f_step_counts, k3_m2f = phase_m2f(torch, kernels, smi, kc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rgb = phase_rgb(torch, kernels, smi, kc)
 
     out = []
     for row in rows:
@@ -2841,6 +3305,8 @@ def main(phases=None):
             extra["product_ms"] = row.pop("product_ms")
         if row["name"] == "msda_multi_level":   # the pixel decoder's K3
             extra["m2f_shapes"] = k3_m2f
+        if row["name"] == "pixel_shuffle_up_bn":  # on the conv stem's c1
+            extra["rgb_operands_ms"] = rgb["k6_ms"]
         out.append(dict(row, launches=counts[row["name"]],
                         train_launches=train_counts[row["name"]],
                         train_entry_launches=entry_counts[row["name"]],
@@ -2850,6 +3316,9 @@ def main(phases=None):
                         files_launches=files_counts[row["name"]],
                         m2f_launches=m2f_counts[row["name"]],
                         m2f_train_launches=m2f_step_counts[row["name"]],
+                        rgb_launches=rgb["forward"][row["name"]],
+                        rgb_train_launches=rgb["micro_step"][row["name"]],
+                        encoder_launches=rgb["encoder"][row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
@@ -2866,11 +3335,11 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--ddp-rank"]:
             ddp_rank_main(*sys.argv[2:4])
         elif sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (
-                ["ddp"], ["files"], ["m2f"]):
+                ["ddp"], ["files"], ["m2f"], ["rgb"]):
             main(sys.argv[2:])
         elif sys.argv[1:]:
             raise SystemExit(
-                f"usage: {sys.argv[0]} [--phase ddp|files|m2f]")
+                f"usage: {sys.argv[0]} [--phase ddp|files|m2f|rgb]")
         else:
             main()
     except PhaseError as e:

@@ -71,6 +71,14 @@ DELIVER_CASES = ("motionblur", "overexposure", "underexposure", "lidarjitter",
                  "eventlowres")
 
 
+def _aligned(value) -> List[str]:
+    """A config's mod_dir / mod_suffix as a list: a string is one entry,
+    an empty string or None none."""
+    if not value:
+        return []
+    return [value] if isinstance(value, str) else list(value)
+
+
 class SegDataset:
     """Base multimodal segmentation dataset.
 
@@ -100,18 +108,22 @@ class SegDataset:
         self.ann_dir = osp.join(data_root, ann_dir) if ann_dir else None
         # mod_dir/mod_suffix accept a str (one aux modality) or aligned
         # LISTS (reference mod_dir/mod_suffix are lists, e.g.
-        # configs/_base_/datasets/muses.py:30-31 carries event + lidar)
-        mod_dirs = [mod_dir] if isinstance(mod_dir, str) else list(mod_dir)
-        mod_sufs = ([mod_suffix] if isinstance(mod_suffix, str)
-                    else list(mod_suffix))
-        assert len(mod_dirs) == len(mod_sufs), "mod_dir/mod_suffix mismatch"
-        assert len(mod_dirs) == len(modalities_ch) - 1, (
-            "one aux dir/suffix per non-RGB modality")
+        # configs/_base_/datasets/muses.py:30-31 carries event + lidar);
+        # an RGB-only config (one modality) gives none: an empty list, an
+        # empty string or None
+        mod_dirs, mod_sufs = _aligned(mod_dir), _aligned(mod_suffix)
+        if len(mod_dirs) != len(mod_sufs):
+            raise ValueError(f"mod_dir {mod_dir!r} and mod_suffix "
+                             f"{mod_suffix!r} do not align")
+        if len(mod_dirs) != len(modalities_ch) - 1:
+            raise ValueError(f"one aux dir/suffix per non-RGB modality: "
+                             f"{len(mod_dirs)} for modalities_ch "
+                             f"{tuple(modalities_ch)}")
         self.mod_dirs = [osp.join(data_root, d) for d in mod_dirs]
         self.mod_suffixes = mod_sufs
-        # single-aux convenience aliases (most configs)
-        self.mod_dir = self.mod_dirs[0]
-        self.mod_suffix = self.mod_suffixes[0]
+        # single-aux convenience aliases (most configs; None when RGB-only)
+        self.mod_dir = self.mod_dirs[0] if self.mod_dirs else None
+        self.mod_suffix = self.mod_suffixes[0] if self.mod_suffixes else None
         self.img_suffix = img_suffix
         self.seg_map_suffix = seg_map_suffix
         self.modalities_ch = tuple(modalities_ch)

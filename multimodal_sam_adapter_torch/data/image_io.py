@@ -16,15 +16,23 @@ on libpng 1.6) gives for a PNG file, bit for bit
   with the tRNS alphas (255 past their end); RGBA as BGRA. 16-bit samples
   stay uint16; fewer than 8 bits are scaled to 8.
 
+- `"grayscale"` (IMREAD_GRAYSCALE): uint8 (H, W). Gray as read (alpha
+  dropped, fewer than 8 bits scaled to 8, 16 bits cut to the high byte);
+  colour (RGB, RGBA, a palette expanded) through libpng's integer
+  RGB -> gray, which OpenCV's PNG decoder asks for with the weights 0.299
+  and 0.587: coefficients 9797, 19234 and 13737 (of 2^15) for R, G and B,
+  the 8-bit sum truncated (>> 15), the 16-bit one rounded (+ 2^14 >> 15)
+  and then cut to its high byte.
+
 Every bit depth (1, 2, 4, 8, 16), colour type (0, 2, 3, 4, 6) and Adam7
-interlacing is read; "color" turns the image by an eXIf chunk's
-orientation, as OpenCV does. Each chunk's CRC is checked (zlib.crc32)
+interlacing is read; "color" and "grayscale" turn the image by an eXIf
+chunk's orientation, as OpenCV does. Each chunk's CRC is checked (zlib.crc32)
 and IDAT is inflated with zlib; the scanlines are unfiltered in the host
 core (csrc/host/image_core.cpp via data/native.py), whose numpy twin is
 `unfilter_numpy`. A missing file raises FileNotFoundError; a file that is
 not PNG (a JPEG, say), a bad CRC, a truncated file or stream, an unknown
 critical chunk or a malformed header raise `PNGError`, naming the path and
-the reason. Not read: other formats, and OpenCV's IMREAD_GRAYSCALE.
+the reason. Not read: other formats.
 
 `imwrite(path, img, filters=...)` writes uint8 (H, W), (H, W, 3) BGR or
 (H, W, 4) BGRA as an 8-bit PNG that `cv2.imread` decodes to the same
@@ -42,7 +50,10 @@ import numpy as np
 from . import native as _native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-MODES = ("color", "unchanged")
+MODES = ("color", "unchanged", "grayscale")
+# libpng's png_set_rgb_to_gray_fixed of OpenCV's (0.299, 0.587): R and G
+# as int(w * 32768), B the rest of 2^15
+GRAY_RGB = (9797, 19234, 32768 - 9797 - 19234)
 # channels of each colour type, and the bit depths it allows
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
@@ -335,7 +346,7 @@ def decode_png(data: bytes, mode: str = "color", path="<bytes>",
         pos += size
     img = _convert(out, color, depth, mode, extra.get(b"PLTE"),
                    extra.get(b"tRNS"))
-    if mode == "color" and b"eXIf" in extra:
+    if mode != "unchanged" and b"eXIf" in extra:
         img = _orient(img, _exif_orientation(extra[b"eXIf"]))
     return img
 
@@ -348,8 +359,27 @@ def _to8(s: np.ndarray, depth: int) -> np.ndarray:
     return s
 
 
+def _gray(s: np.ndarray, color: int, depth: int, palette) -> np.ndarray:
+    """(h, w, ch) samples -> IMREAD_GRAYSCALE's uint8 (h, w)."""
+    if color in (0, 4):
+        return np.ascontiguousarray(_to8(s[..., 0], depth))
+    if color == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(palette)] = palette
+        rgb = pal[s[..., 0]]
+    else:
+        rgb = s[..., :3]
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    total = GRAY_RGB[0] * r + GRAY_RGB[1] * g + GRAY_RGB[2] * b
+    if depth == 16:
+        return ((total + (1 << 14)) >> 23).astype(np.uint8)
+    return (total >> 15).astype(np.uint8)
+
+
 def _convert(s, color, depth, mode, palette, trns):
     """(h, w, ch) samples -> what OpenCV's decoder gives in `mode`."""
+    if mode == "grayscale":
+        return _gray(s, color, depth, palette)
     if color == 3:
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(palette)] = palette
@@ -386,7 +416,8 @@ def _convert(s, color, depth, mode, palette, trns):
 
 
 def imread(path, mode: str = "color", native: bool = True) -> np.ndarray:
-    """cv2.imread(path, IMREAD_COLOR / IMREAD_UNCHANGED) of a PNG file."""
+    """cv2.imread(path, IMREAD_COLOR / IMREAD_UNCHANGED /
+    IMREAD_GRAYSCALE) of a PNG file."""
     try:
         with open(path, "rb") as f:
             data = f.read()

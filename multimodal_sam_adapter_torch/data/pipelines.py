@@ -34,6 +34,12 @@ or its numpy twin):
 Each transform makes the same calls on the numpy Generator as the JAX
 package's, in the same order, so a seed gives the same crop, flip and
 photometric draws in both.
+
+The transforms the reference registers but no shipped config uses, ported
+with the JAX package's semantics and draws and not called by either
+package's pipelines: `load_bin_ann` (a grayscale read, 255 -> 1),
+`shift` (a random translation: data/warp.py, equal to cv2.warpAffine),
+`crop_rect`, `resize_shortest_edge` and `setr_resize` (on data/resize.py).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from . import native as _native
 from .image_io import imread
 from .resize import resize as imresize
 from .resize import resize_channels, resize_nearest
+from .warp import translate
 
 # ---------------------------------------------------------------------------
 # mmcv-compatible resize helpers (`imresize` is data/resize.py's `resize`:
@@ -106,6 +113,21 @@ def load_annotation(path: str, reduce_zero_label: bool = False) -> np.ndarray:
     return np.clip(gt, 0, 255).astype(np.uint8)
 
 
+def load_bin_ann(path: str, reduce_zero_label: bool = False) -> np.ndarray:
+    """Binary annotation (the reference's LoadBinAnn): the grayscale read,
+    255 mapped to 1, then the reduce-zero variant with the reference's 254
+    sentinel quirk."""
+    gt = imread(path, "grayscale").astype(np.uint8)
+    gt[gt == 255] = 1
+    if reduce_zero_label:
+        gt = gt.astype(np.int32)
+        gt[gt == 0] = 255
+        gt = gt - 1
+        gt[gt == 254] = 255
+        gt = np.clip(gt, 0, 255).astype(np.uint8)
+    return gt
+
+
 # ---------------------------------------------------------------------------
 # deterministic transforms
 # ---------------------------------------------------------------------------
@@ -127,6 +149,88 @@ def resize_multimodal(sample: Dict, img_scale, keep_ratio: bool = True,
         else:
             sample["gt"] = imresize(sample["gt"], scale, "nearest")
     sample.setdefault("meta", {})["img_shape"] = img.shape
+    return sample
+
+
+def crop_rect(sample: Dict, box_crop: Tuple[float, float, float, float]
+              ) -> Dict:
+    """Fixed fractional-box crop (the reference's CropRect): box_crop =
+    (y1, y2, x1, x2) as fractions of the image's height and width."""
+    fy1, fy2, fx1, fx2 = box_crop
+
+    def crop(a):
+        y1, y2 = int(fy1 * a.shape[0]), int(fy2 * a.shape[0])
+        x1, x2 = int(fx1 * a.shape[1]), int(fx2 * a.shape[1])
+        return a[y1:y2, x1:x2]
+
+    sample["img"] = crop(sample["img"])
+    if sample.get("gt") is not None:
+        sample["gt"] = crop(sample["gt"])
+    sample.setdefault("meta", {})["img_shape"] = sample["img"].shape
+    return sample
+
+
+def resize_shortest_edge(sample: Dict, scale, max_size: int,
+                         native: bool = True) -> Dict:
+    """detectron2's shortest-edge resize (the reference's
+    ResizeShortestEdge): the short edge to `scale` unless the long edge
+    would pass `max_size`, which it is then fitted to."""
+    img = sample["img"]
+    h, w = img.shape[:2]
+    size = float(scale if isinstance(scale, (int, float)) else min(scale))
+    f = size / min(h, w)
+    nh, nw = (size, f * w) if h < w else (f * h, size)
+    if max(nh, nw) > max_size:
+        f2 = max_size / max(nh, nw)
+        nh, nw = nh * f2, nw * f2
+    nh, nw = int(nh + 0.5), int(nw + 0.5)
+    sample["img"] = resize_channels(img, (nw, nh), native=native)
+    if sample.get("gt") is not None:
+        sample["gt"] = resize_nearest(sample["gt"], (nw, nh))
+    sample.setdefault("meta", {})["img_shape"] = sample["img"].shape
+    return sample
+
+
+def setr_resize(sample: Dict, rng: np.random.Generator, img_scale=None,
+                multiscale_mode: str = "range", ratio_range=None,
+                keep_ratio: bool = True, crop_size=None,
+                setr_multi_scale: bool = False, native: bool = True) -> Dict:
+    """SETR's multiscale resize (the reference's SETR_Resize): the scale
+    from a ratio of the first scale (`ratio_range`), a random long and
+    short edge between two scales ('range'), or one of the scales
+    ('value'); with `setr_multi_scale` (and keep_ratio, crop_size) the
+    image's short edge goes to max(the scale's short edge, crop_size)."""
+    scales = ([tuple(img_scale)] if isinstance(img_scale[0], (int, float))
+              else [tuple(s) for s in img_scale])
+    if ratio_range is not None:
+        r = rng.uniform(*ratio_range)
+        scale = (int(scales[0][0] * r), int(scales[0][1] * r))
+    elif multiscale_mode == "range" and len(scales) == 2:
+        longs, shorts = [max(s) for s in scales], [min(s) for s in scales]
+        scale = (int(rng.integers(min(longs), max(longs) + 1)),
+                 int(rng.integers(min(shorts), max(shorts) + 1)))
+    else:  # 'value': one of the scales
+        scale = scales[int(rng.integers(len(scales)))]
+    img = sample["img"]
+    if setr_multi_scale and keep_ratio and crop_size is not None:
+        new_short = max(min(scale), crop_size)
+        h, w = img.shape[:2]
+        if h > w:
+            scale = (new_short * h / w, new_short)
+        else:
+            scale = (new_short, new_short * w / h)
+    if keep_ratio:
+        new_wh = rescale_size((img.shape[1], img.shape[0]), scale)
+        sample["img"] = resize_channels(img, new_wh, native=native)
+    else:
+        sample["img"] = resize_channels(img, scale[::-1],
+                                        native=native)
+    if sample.get("gt") is not None:
+        if keep_ratio:
+            sample["gt"] = imrescale(sample["gt"], scale, "nearest")
+        else:
+            sample["gt"] = imresize(sample["gt"], scale[::-1], "nearest")
+    sample.setdefault("meta", {})["img_shape"] = sample["img"].shape
     return sample
 
 
@@ -297,6 +401,39 @@ def random_flip(sample: Dict, rng: np.random.Generator,
         sample["img"] = np.ascontiguousarray(sample["img"][:, ::-1])
         if sample.get("gt") is not None:
             sample["gt"] = np.ascontiguousarray(sample["gt"][:, ::-1])
+    return sample
+
+
+def _imtranslate(img: np.ndarray, dx: float, dy: float, border_value,
+                 interpolation: str = "bilinear") -> np.ndarray:
+    """mmcv.imtranslate: data/warp.py's cv2.warpAffine, constant border,
+    an (H, W, 1) image kept 3-D."""
+    out = translate(img, dx, dy, border_value, interpolation)
+    return out[:, :, None] if img.ndim == 3 and out.ndim == 2 else out
+
+
+def shift(sample: Dict, rng: np.random.Generator, x_trans: float,
+          y_trans: float, prob: float = 0.5, pad_val: float = 0,
+          seg_pad_val: int = 0) -> Dict:
+    """Random translation (the reference's Shift) by uniform draws in
+    [-x_trans, x_trans] and [-y_trans, y_trans]: the image bilinear in
+    chunks of 4 channels, the labels nearest (the reference passed
+    bilinear for label maps, which mixes labels; the JAX package does not
+    replicate that, nor does the port)."""
+    if rng.random() < prob:
+        dx = rng.uniform(-1, 1) * x_trans
+        dy = rng.uniform(-1, 1) * y_trans
+        img = sample["img"]
+        if img.shape[2] > 4:
+            img = np.concatenate([
+                _imtranslate(img[..., s:s + 4], dx, dy, pad_val)
+                for s in range(0, img.shape[2], 4)], axis=2)
+        else:
+            img = _imtranslate(img, dx, dy, pad_val)
+        sample["img"] = img
+        if sample.get("gt") is not None:
+            sample["gt"] = _imtranslate(sample["gt"], dx, dy, seg_pad_val,
+                                        "nearest")
     return sample
 
 

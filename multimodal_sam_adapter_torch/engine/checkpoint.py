@@ -15,7 +15,9 @@ without its URL resolution (the port reads local files only).
   bare state_dict, with DistributedDataParallel's `module.` prefix
   stripped; `read_checkpoint` also returns the container's `meta`;
 - `ingest_sam_pth`, `ingest_convnext_pth` and `merge_pretrained`: a SAM
-  image encoder and an ImageNet ConvNeXt into the segmentor's state_dict.
+  image encoder and an ImageNet ConvNeXt into the segmentor's state_dict
+  (an RGB-only segmentor takes the SAM encoder alone: it has no ConvNeXt),
+  or the SAM encoder into the standalone `ImageEncoderViT`.
   The port's names are the reference's keys, so ingestion renames keys
   (the ConvNeXt into both twin branches) and checks shapes; the JAX
   package also converts layouts there.
@@ -142,11 +144,13 @@ def _block_index(i: int, interaction_indexes) -> None:
 
 def ingest_sam_pth(path: str, interaction_indexes: Sequence[Tuple[int, int]]
                    = ((0, 5), (6, 11), (12, 17), (18, 23)),
-                   ) -> Dict[str, torch.Tensor]:
+                   standalone: bool = False) -> Dict[str, torch.Tensor]:
     """A SAM checkpoint (the whole SAM, or its image encoder alone) -> the
     segmentor's `backbone.*` keys: the encoder's keys kept (the
     `image_encoder.` prefix stripped, `neck.*` dropped), any other key
-    refused."""
+    refused. `standalone=True` returns them without the `backbone.`
+    prefix, the keys of models/sam_vit.py:ImageEncoderViT (its blocks need
+    no interaction stage: `interaction_indexes` is not read)."""
     sd = load_state_dict_file(path)
     if any(k.startswith(SAM_ENCODER_PREFIX) for k in sd):
         sd = {k[len(SAM_ENCODER_PREFIX):]: v for k, v in sd.items()
@@ -157,13 +161,14 @@ def ingest_sam_pth(path: str, interaction_indexes: Sequence[Tuple[int, int]]
             continue
         m = re.fullmatch(r"blocks\.(\d+)\.(.+)", k)
         if m:
-            _block_index(int(m.group(1)), interaction_indexes)
+            if not standalone:
+                _block_index(int(m.group(1)), interaction_indexes)
             if m.group(2) not in SAM_BLOCK_KEYS:
                 raise KeyError(f"unmapped ViT block key: {m.group(2)}")
         elif k not in ("pos_embed", "patch_embed.proj.weight",
                        "patch_embed.proj.bias"):
             raise KeyError(f"unmapped SAM encoder key: {k}")
-        out[f"backbone.{k}"] = v
+        out[k if standalone else f"backbone.{k}"] = v
     return out
 
 

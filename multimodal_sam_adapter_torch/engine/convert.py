@@ -11,6 +11,8 @@ one onto the port's `state_dict`. Layouts undone here:
 - the fusion neck's gate/val halves -> the fused 2x-wide project_in and
   dwconv weights;
 - the twin ConvNeXt `branch_x` / `branch_y` trees -> `_x` / `_y` keys;
+- the RGB-only prior's `stem1..stem3` / `conv2..conv4` units -> the
+  nn.Sequential indices of ViT-Adapter's `stem` / `conv2..conv4`;
 - the Mask2Former head's separate q / k / v Dense layers -> the packed
   `in_proj_weight` / `in_proj_bias` of nn.MultiheadAttention.
 
@@ -309,13 +311,47 @@ def backbone(p: Tree, stats: Tree, key: str,
     for i in range(1, 5):
         yield from _bn(p[f"norm{i}"], stats[f"norm{i}"], f"{key}.norm{i}")
     spm, spm_stats = p["spm"], stats.get("spm", {})
-    for br in ("x", "y"):
-        yield from convnext_branch(spm["twin_conv"][f"branch_{br}"],
-                                   f"{key}.spm.twin_conv", br)
-    yield from fusion_neck(spm["smart_fusion"], spm_stats["smart_fusion"],
-                           f"{key}.spm.smart_fusion")
+    if "twin_conv" in spm:
+        for br in ("x", "y"):
+            yield from convnext_branch(spm["twin_conv"][f"branch_{br}"],
+                                       f"{key}.spm.twin_conv", br)
+        yield from fusion_neck(spm["smart_fusion"],
+                               spm_stats["smart_fusion"],
+                               f"{key}.spm.smart_fusion")
+    else:
+        yield from conv_stem(spm, spm_stats, f"{key}.spm")
     for i in range(1, 5):
         yield from _conv2d(spm[f"fc{i}"], f"{key}.spm.fc{i}")
+
+
+# the RGB-only prior's ConvNormAct units -> (nn.Sequential, conv index):
+# the conv at <index>, its BatchNorm at <index + 1>, the ReLU's slot after
+CONV_STEM = {"stem1": ("stem", 0), "stem2": ("stem", 3), "stem3": ("stem", 6),
+             "conv2": ("conv2", 0), "conv3": ("conv3", 0),
+             "conv4": ("conv4", 0)}
+
+
+def conv_stem(p: Tree, stats: Tree, key: str):
+    """The RGB-only SpatialPriorModule's `stem1..stem3`, `conv2..conv4`
+    (conv + BatchNorm params and batch_stats) -> ViT-Adapter's
+    `stem.{0,1,3,4,6,7}` and `conv{2,3,4}.{0,1}` keys."""
+    for name, (seq, i) in CONV_STEM.items():
+        yield from _conv2d(p[name]["conv"], f"{key}.{seq}.{i}")
+        yield from _bn(p[name]["norm"], stats[name]["norm"],
+                       f"{key}.{seq}.{i + 1}")
+
+
+def sam_encoder(p: Tree) -> Dict[str, torch.Tensor]:
+    """The params of the JAX package's standalone ImageEncoderViT (e.g.
+    its engine/convert.py:convert_sam_encoder(sd, standalone=True)) -> the
+    port's ImageEncoderViT state_dict: SAM's encoder keys, unprefixed."""
+    pairs = [*_conv2d(p["patch_embed"]["proj"], "patch_embed.proj"),
+             ("pos_embed", p["pos_embed"])]
+    i = 0
+    while f"blocks_{i}" in p:
+        pairs += vit_block(p[f"blocks_{i}"], f"blocks.{i}")
+        i += 1
+    return to_state_dict(pairs)
 
 
 def to_state_dict(pairs) -> Dict[str, torch.Tensor]:

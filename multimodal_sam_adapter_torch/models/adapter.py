@@ -9,9 +9,15 @@ the counterpart of multimodal_sam_adapter_tpu/models/adapter.py.
   package: its injector and ViT blocks have none);
 - `InteractionBlock`: injector, a span of the backbone's ViT blocks,
   extractor (and two extra extractors in the last stage);
+- `SpatialPriorModule`: the RGB-only (single-modality) prior, ViT-Adapter's
+  conv stem: three 3x3 conv + BN + ReLU (the first at stride 2), a 3x3
+  stride-2 max pool, three stride-2 conv + BN + ReLU stages, and 1x1
+  projections to the ViT width;
 - `SpatialPriorModuleBimodal`: TwinConvNeXt + fusion neck + 1x1
-  projections to the ViT width. c1 stays a spatial NCHW map; c2..c4 become
-  token streams.
+  projections to the ViT width.
+
+Both priors return c1 as a spatial NCHW map (it never joins the token
+stream) and c2..c4 as token streams.
 
 Reference points and spatial shapes are static functions of the input
 geometry and are passed in by the backbone.
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import DropPath, gelu
+from ..nn.layers import BatchNorm2d, DropPath, gelu
 from ..ops.msda import MSDeformAttention
 from .fusion_neck import RoadFormer2Neck
 from .twin_convnext import CONVNEXT_ARCHS, TwinConvNeXt
@@ -162,6 +168,59 @@ class InteractionBlock(nn.Module):
         for ext in (self.extractor, *self.extra_extractors):
             c = ext(c, x, pyramid_shapes, hw)
         return x, c
+
+
+def _conv_bn_relu(in_ch: int, out_ch: int, stride: int) -> List[nn.Module]:
+    """A 3x3 conv (no bias: a BatchNorm follows), BatchNorm, ReLU: the
+    JAX package's ConvNormAct(norm='bn', act='relu'), as the three entries
+    of a reference nn.Sequential (keys `<i>` conv, `<i + 1>` norm)."""
+    return [nn.Conv2d(in_ch, out_ch, 3, stride, 1, bias=False),
+            BatchNorm2d(out_ch, eps=1e-5), nn.ReLU()]
+
+
+class SpatialPriorModule(nn.Module):
+    """The single-modality conv-stem prior (ViT-Adapter's
+    SpatialPriorModule; JAX models/adapter.py:SpatialPriorModule), used
+    when the config gives one modality. Widths inplanes, 2x, 4x, 4x at
+    strides 4, 8, 16, 32; each projected to embed_dim by a 1x1 conv with
+    bias. Keys as the reference's: `stem.{0,1,3,4,6,7}`,
+    `conv{2,3,4}.{0,1}`, `fc{1..4}`.
+
+    The stem runs channels-last: the input is copied into that layout (3
+    channels, cheap), so every conv and c1 come out channels-last. c1 is
+    K6's operand in eval mode, which takes NCHW or channels-last only, and
+    this states which one it gets. The copy is made whatever the input's
+    strides: a B = 1 input whose batch axis has numpy's stride 0 counts as
+    channels-last to `is_contiguous`, but cuDNN then runs the conv in
+    NCHW."""
+
+    def __init__(self, embed_dim: int, inplanes: int = 64,
+                 in_chans: int = 3):
+        super().__init__()
+        self.stem = nn.Sequential(
+            *_conv_bn_relu(in_chans, inplanes, 2),
+            *_conv_bn_relu(inplanes, inplanes, 1),
+            *_conv_bn_relu(inplanes, inplanes, 1),
+            nn.MaxPool2d(3, 2, 1))
+        widths = (inplanes, 2 * inplanes, 4 * inplanes, 4 * inplanes)
+        for i in range(3):
+            setattr(self, f"conv{i + 2}",
+                    nn.Sequential(*_conv_bn_relu(widths[i], widths[i + 1],
+                                                 2)))
+        for i, w in enumerate(widths):
+            setattr(self, f"fc{i + 1}", nn.Conv2d(w, embed_dim, 1))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        c = self.stem(x.clone(memory_format=torch.channels_last))
+        feats = [c]
+        for i in range(3):
+            c = getattr(self, f"conv{i + 2}")(c)
+            feats.append(c)
+        outs = []
+        for i, f in enumerate(feats):
+            p = getattr(self, f"fc{i + 1}")(f)
+            outs.append(p if i == 0 else p.flatten(2).transpose(1, 2))
+        return outs
 
 
 class SpatialPriorModuleBimodal(nn.Module):

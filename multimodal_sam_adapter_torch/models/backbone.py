@@ -2,7 +2,11 @@
 counterpart of multimodal_sam_adapter_tpu/models/backbone.py.
 
 Input (B, 3 + aux, H, W) NCHW: the RGB and auxiliary channels feed the
-twin ConvNeXt spatial prior, the RGB channels feed the ViT patch embed.
+twin ConvNeXt spatial prior (`SpatialPriorModuleBimodal`), the RGB channels
+feed the ViT patch embed. With one modality (`modalities_ch` of length 1,
+an RGB-only config) the prior is ViT-Adapter's conv stem
+(`SpatialPriorModule`, widths from `conv_inplane`) on the RGB channels,
+as the JAX package chooses.
 Four interaction stages {inject -> ViT blocks -> extract}, then the pyramid
 assembly: a 2x2 stride-2 ConvTranspose2d lifts c2 onto c1, bilinearly
 resized ViT features are added per level, and four BatchNorms finish. In
@@ -25,9 +29,10 @@ from torch import nn
 
 from ..nn.layers import BatchNorm2d, KeyedDropout, checkpoint
 from ..ops.pixel_shuffle import pixel_shuffle_up_bn
-from ..utils.interpolate import resize_bicubic, resize_bilinear
-from .adapter import InteractionBlock, SpatialPriorModuleBimodal
-from .sam_vit import PatchEmbed, ViTBlock
+from ..utils.interpolate import resize_bilinear
+from .adapter import (InteractionBlock, SpatialPriorModule,
+                      SpatialPriorModuleBimodal)
+from .sam_vit import PatchEmbed, ViTBlock, add_pos_embed
 
 
 class SAMAdapterBimodal(nn.Module):
@@ -48,19 +53,22 @@ class SAMAdapterBimodal(nn.Module):
         # init_values: the injector gamma's initial value, which
         # models/init.py reads from the config
         del init_values
-        if len(modalities_ch) < 2:
-            raise NotImplementedError(
-                "the RGB-only spatial prior is not ported yet")
-        del conv_inplane  # the SPM widths follow from the ConvNeXt arch
         self.embed_dim = embed_dim
         self.with_cp = with_cp
         self.rgb_ch = modalities_ch[0]
         self.interaction_indexes = tuple(tuple(s) for s in
                                          interaction_indexes)
         grid = pretrained_size // patch_size
-        self.spm = SpatialPriorModuleBimodal(
-            embed_dim, arch, img_size,
-            (modalities_ch[0], sum(modalities_ch[1:])), conv_drop_path_rate)
+        self.bimodal = len(modalities_ch) > 1
+        if self.bimodal:
+            # the twin's widths follow from the ConvNeXt arch
+            self.spm = SpatialPriorModuleBimodal(
+                embed_dim, arch, img_size,
+                (modalities_ch[0], sum(modalities_ch[1:])),
+                conv_drop_path_rate)
+        else:
+            self.spm = SpatialPriorModule(embed_dim, conv_inplane,
+                                          self.rgb_ch)
         self.level_embed = nn.Parameter(torch.zeros(3, embed_dim))
         self.patch_embed = PatchEmbed(self.rgb_ch, embed_dim, patch_size)
         self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
@@ -93,17 +101,14 @@ class SAMAdapterBimodal(nn.Module):
                 return checkpoint(module, *args, module=module)
             return module(*args)
 
-        c1, c2, c3, c4 = run(self.spm, x_rgb, x_aux)
+        c1, c2, c3, c4 = (run(self.spm, x_rgb, x_aux) if self.bimodal
+                          else run(self.spm, x_rgb))
         lvl = self.level_embed.to(c2.dtype)
         c = torch.cat([c2 + lvl[0], c3 + lvl[1], c4 + lvl[2]], dim=1)
         n2, n3 = c2.shape[1], c3.shape[1]
 
         tokens, H, W = self.patch_embed(x_rgb)
-        pos = self.pos_embed
-        if pos.shape[1:3] != (H, W):
-            pos = resize_bicubic(pos.permute(0, 3, 1, 2), (H, W))
-            pos = pos.permute(0, 2, 3, 1)
-        xt = self.pos_drop(tokens + pos.reshape(1, H * W, E).to(tokens.dtype))
+        xt = self.pos_drop(add_pos_embed(tokens, self.pos_embed, H, W))
 
         pyr_shapes = ((H_img // 8, W_img // 8), (H_img // 16, W_img // 16),
                       (H_img // 32, W_img // 32))

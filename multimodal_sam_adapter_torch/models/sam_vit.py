@@ -9,10 +9,15 @@ records, each kernel runs inside its autograd Function, whose backward is
 the plain version's autodiff. The blocks have no drop path, as the JAX
 package's ViTBlock has none (its only drop path in the stages is the
 extractors', models/adapter.py).
+
+`ImageEncoderViT` is SAM's image encoder alone (no adapter, no neck), the
+counterpart of the JAX package's: its parameter names are SAM's
+`image_encoder.*` keys without the prefix, so a SAM checkpoint loads
+through engine/checkpoint.py:ingest_sam_pth(..., standalone=True).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -21,6 +26,7 @@ from ..nn.layers import MLPBlock
 from ..ops.attention import window_partition, window_unpartition
 from ..ops.flash_attention import flash_attention
 from ..ops.window_attention import window_attention
+from ..utils.interpolate import resize_bicubic
 
 
 class PatchEmbed(nn.Module):
@@ -35,6 +41,16 @@ class PatchEmbed(nn.Module):
         x = self.proj(x)
         _, _, Hp, Wp = x.shape
         return x.flatten(2).transpose(1, 2), Hp, Wp
+
+
+def add_pos_embed(tokens: torch.Tensor, pos_embed: torch.Tensor, Hp: int,
+                  Wp: int) -> torch.Tensor:
+    """tokens (B, Hp * Wp, C) + the (1, grid, grid, C) absolute position
+    embedding, resized bicubically when the token grid is not its grid."""
+    if pos_embed.shape[1:3] != (Hp, Wp):
+        pos_embed = resize_bicubic(pos_embed.permute(0, 3, 1, 2),
+                                   (Hp, Wp)).permute(0, 2, 3, 1)
+    return tokens + pos_embed.reshape(1, Hp * Wp, -1).to(tokens.dtype)
 
 
 class ViTAttention(nn.Module):
@@ -101,3 +117,34 @@ class ViTBlock(nn.Module):
         x = x + y
         x = x + self.mlp(self.norm2(x))
         return x.reshape(B, N, C)
+
+
+class ImageEncoderViT(nn.Module):
+    """SAM's image encoder without its neck: patch embed, the absolute
+    position embedding (bicubically resized when the token grid is not
+    the pretraining grid), then `depth` blocks, windowed (K1) but for the
+    global ones at `global_attn_indexes` (K2). forward takes an NCHW
+    image and returns (tokens (B, Hp * Wp, C), Hp, Wp), as the JAX
+    package's module does."""
+
+    def __init__(self, patch_size: int = 16, in_chans: int = 3,
+                 embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
+                 mlp_ratio: float = 4.0, window_size: int = 14,
+                 global_attn_indexes: Sequence[int] = (5, 11, 17, 23),
+                 pretrained_size: int = 1024):
+        super().__init__()
+        grid = pretrained_size // patch_size
+        self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size)
+        self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
+        self.blocks = nn.ModuleList(
+            ViTBlock(embed_dim, num_heads, mlp_ratio,
+                     0 if i in global_attn_indexes else window_size,
+                     (grid, grid))
+            for i in range(depth))
+
+    def forward(self, x: torch.Tensor):
+        tokens, Hp, Wp = self.patch_embed(x)
+        tokens = add_pos_embed(tokens, self.pos_embed, Hp, Wp)
+        for blk in self.blocks:
+            tokens = blk(tokens, Hp, Wp)
+        return tokens, Hp, Wp

@@ -26,8 +26,12 @@ itself and adds the all-reduces by hand:
   head_dim values a position, shared by every head) stay replicated.
 - A module whose heads (the attentions) or hidden units (MLP, ConvFFN) do
   not divide by the model size stays replicated, as JAX replicates a leaf
-  that does not divide. Everything else (the spatial prior with K5, K6,
-  the neck, the head) stays replicated.
+  that does not divide. Everything else (the spatial prior with K5, or
+  the RGB-only conv stem, K6, the neck, the head) stays replicated.
+- The rules read module types and parameter names only, so they shard
+  any module built of these parts: the bimodal and the RGB-only
+  segmentor, and the standalone SAM encoder (models/sam_vit.py:
+  ImageEncoderViT, whose keys are `blocks.<i>.attn.qkv...`).
 
 `tp_plan(model, tp)` is the split of a built model's parameters,
 `shard_state_dict` / `gather_state_dict` take a full state dict to one

@@ -468,18 +468,39 @@ def task_zero(rank, world, work, state_dict_path, batch_path):
     return out
 
 
-def task_tp(rank, world, state_dict_path, x_path):
+# a tiny SAM image encoder (models/sam_vit.py:ImageEncoderViT) for the
+# tensor-parallel forward of tests/test_torch_sam_encoder.py: a 6 x 6 token
+# grid, windows of 4 (padded), block 1 global
+TINY_ENCODER = dict(patch_size=16, embed_dim=32, depth=3, num_heads=2,
+                    window_size=4, global_attn_indexes=(1,),
+                    pretrained_size=96)
+
+
+def task_tp(rank, world, state_dict_path, x_path, kind="segmentor"):
     """The tensor-parallel eval forward (tests/test_torch_parallel_tp.py)
     of deliver_tiny from the JAX parity weights, on a (data 2, model 2)
     and a (data 1, model 4) mesh: this rank's rows of the batch, the
     logits, the all-reduces, the head counts the kernels were called
-    with."""
+    with. kind "encoder": TINY_ENCODER's forward on a (data 1, model
+    world) mesh (tests/test_torch_sam_encoder.py): the tokens, the
+    all-reduces, the heads."""
+    from multimodal_sam_adapter_torch.models.sam_vit import ImageEncoderViT
     from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
     from multimodal_sam_adapter_torch.parallel.tp import (make_mesh,
                                                           shard_segmentor_)
 
     sd = torch.load(state_dict_path, weights_only=True)
     x = torch.load(x_path, weights_only=True)
+    if kind == "encoder":
+        mesh = make_mesh(1, world)
+        enc = ImageEncoderViT(**TINY_ENCODER)
+        enc.load_state_dict(sd, strict=True)
+        enc = shard_segmentor_(enc.eval(), mesh)
+        with torch.no_grad():
+            tokens, Hp, Wp = enc(x)
+        return dict(tokens=tokens, grid=(Hp, Wp),
+                    all_reduces=mesh.all_reduces,
+                    heads=[b.attn.num_heads for b in enc.blocks])
     out = {}
     for data, model in ((2, 2), (1, 4)):
         mesh = make_mesh(data, model)

@@ -78,6 +78,9 @@ def test_get_config_equals_the_original(name):
     {"test_cfg.mode": "slide", "test_cfg.stride": "(32, 32)"},
     {"log_config.interval": "5", "data.samples_per_gpu": "4"},
     {"model.backbone.window_size": "7", "evaluation.case": "None"},
+    # the RGB-only segmentor's overrides
+    {"dataset.modalities_ch": "[3]", "dataset.mod_dir": "[]",
+     "dataset.mod_suffix": "[]", "model.backbone.modalities_ch": "[3]"},
 ])
 def test_apply_overrides_equals_the_original(overrides):
     got = treg.apply_overrides(treg.get_config("deliver_tiny"),
@@ -300,6 +303,16 @@ def test_gpu_marked_tests_import_no_opencv():
 def test_the_scan_covers_the_file_modules():
     for path in ("data/image_io.py", "data/resize.py", "engine/visualize.py",
                  "apis/inference.py", "tools/infer_test.py"):
+        assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
+
+
+def test_the_scan_covers_the_rgb_only_and_encoder_modules():
+    """The conv-stem prior, the standalone encoder, their weight maps and
+    the translation of the `shift` transform are scanned like the rest."""
+    for path in ("models/adapter.py", "models/sam_vit.py",
+                 "models/backbone.py", "engine/convert.py",
+                 "engine/checkpoint.py", "data/warp.py", "data/pipelines.py",
+                 "data/image_io.py", "data/datasets.py"):
         assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
 
 
