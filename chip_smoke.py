@@ -202,9 +202,37 @@ Phases, one line each; any failure exits non-zero before the last line:
    resize in the host core equal to its numpy twin); tools/train.py, one
    update of two micro-steps, K1-K6 at 40 / 8 / 8 / 12 / 0 / 0 each.
 
+15. tools: the port's tools and the evidence that it learns. (a)
+   tools/make_synth_deliver.py writes the learnable synthetic DeLiVER
+   (seed 1, 16 samples a cell: 64 a split, 80^2). (b) tools/train.py
+   deliver_tiny --max-epochs 40 --seed 1 trains on it in bf16 on the
+   kernel path, evaluated every 4 epochs (`--cfg-options
+   evaluation.interval=4`: 10 evaluations, which early stopping's
+   patience of 10 cannot cut short): K1-K6 launched exactly as
+   deliver_tiny's geometry predicts (1280 micro-steps of 4 / 4 / 8 / 12 /
+   48 / 0 and 1280 eval forwards, two a validation sample, of 2 / 2 / 4 /
+   6 / 24 / 1). (c)
+   tools/test.py on the best checkpoint on the test split: its mIoU beside
+   the JAX package's 44.35 from the same run (eval_single_scale_
+   20260819_103412.json), failing below 40; the first and last training
+   loss and each evaluation's mIoU. (d) tools/get_flops.py's count of the
+   full-width deliver_rgblidar forward at 1024^2 on the card's kernel path
+   equal to the `meta` count, 459.05 M parameters, the GFLOPs beside
+   XLA's 5029.65, and K1-K6 launched once a forward's worth. (e)
+   tools/convert_deliver.py and tools/color_gt.py on a raw-layout tree of
+   1042^2 frames this phase writes (labels remapped and coloured as the
+   root tools do; files/s). (f) tools/convert_checkpoints.py `sam` on a
+   SAM ViT-L layout file and `full` on the trained model in the
+   reference's DDP mmcv form: the outputs load strictly through
+   `load_state_dict_file('file://...')` and tools/test.py (the same mIoU).
+   (a)-(c) run in a child process (`--tools-train`), which the full run
+   starts before phase 11 so that it overlaps phases 11-14; phase 15
+   waits for it, then runs (d)-(f).
+
 `python3 chip_smoke.py --phase ddp` runs phases 1, 2 and 11 alone (the
 four-card run); `--phase files` runs phases 1, 2 and 12; `--phase m2f`
-phases 1, 2 and 13; `--phase rgb` phases 1, 2 and 14.
+phases 1, 2 and 13; `--phase rgb` phases 1, 2 and 14; `--phase tools`
+phases 1, 2 and 15.
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -3209,17 +3237,332 @@ def phase_rgb(torch, kernels, smi, kc):
                 served=prof, k6_ms=k6_ms)
 
 
+# --------------------------------------------------------------- phase 15
+
+# the learnable synthetic DeLiVER of tools/make_synth_deliver.py (seed 1,
+# 16 samples a cell: 64 a split) and deliver_tiny trained on it for 40
+# epochs, as the JAX package's artifact eval_single_scale_20260819_103412
+# records (mIoU 44.35 on the test split, ~0.4 untrained); evaluated every
+# TOOLS_EVAL_INTERVAL epochs: 10 evaluations, so early stopping (patience
+# 10 evaluations) cannot end the run before its 40 epochs
+TOOLS_SEED, TOOLS_PER_CELL, TOOLS_EPOCHS = 1, 16, 40
+TOOLS_EVAL_INTERVAL = 4
+JAX_SYNTH_MIOU = 44.35
+MIN_SYNTH_MIOU = 40.0
+# deliver_tiny's launches: an eval forward (K1 in its 2 windowed blocks,
+# K2 in its 2 global ones, 4 injectors, 4 + 2 extractors, 2 x 12 ConvNeXt
+# blocks, the f1 assembly); a micro-step runs the forward and the with_cp
+# recompute of each checkpointed region, K6 never
+PER_TINY_FORWARD = {"window_attention": 2, "flash_attention": 2,
+                    "msda_multi_level": 4, "msda_single_level": 6,
+                    "convnext_block": 24, "pixel_shuffle_up_bn": 1}
+PER_TINY_STEP = dict({k: 2 * v for k, v in PER_TINY_FORWARD.items()},
+                     pixel_shuffle_up_bn=0)
+# forwards an evaluated sample: the synthetic labels are 80^2 and
+# deliver_tiny's `whole_dim` predicts 64^2, so the evaluator runs each
+# sample again at the label's size (as the JAX package's evaluator does)
+TOOLS_EVAL_FORWARDS = 2
+# XLA's cost analysis of the JAX flagship forward (bf16, 1024^2, batch 1)
+# and its parameters, from the root tools/get_flops.py
+JAX_FLAGSHIP_GFLOPS = 5029.65
+FLAGSHIP_PARAMS_M = "459.05"
+# (e): raw DeLiVER frames at the dataset's 1042^2, 2 cases x 3 splits x 2
+RAW_SIDE, RAW_CASES, RAW_FRAMES = 1042, ("cloud", "night"), 2
+# the convergence run took 754.6 s of phase 15's 830 s alone on an H100
+# (PR 15): the limit of the wait for it
+TOOLS_TRAIN_TIMEOUT = 1000
+
+
+def tools_launches(steps, evals, val):
+    """K1-K6 launches of a deliver_tiny train entry run on the synthetic
+    DeLiVER: `steps` micro-steps and `evals` evaluations of `val`
+    samples."""
+    forwards = evals * val * TOOLS_EVAL_FORWARDS
+    return {k: steps * PER_TINY_STEP[k] + forwards * PER_TINY_FORWARD[k]
+            for k in PER_TINY_FORWARD}
+
+
+def tools_convergence(torch, kernels, smi, work):
+    """(a)-(c): the synthetic tree, 40 bf16 epochs of tools/train.py on
+    the kernel path, tools/test.py on the best checkpoint. Returns the
+    run's launches, the best checkpoint, the tree and the test mIoU."""
+    from multimodal_sam_adapter_torch.tools import make_synth_deliver
+    from multimodal_sam_adapter_torch.tools import test as test_tool
+    from multimodal_sam_adapter_torch.tools import train as train_tool
+
+    data = os.path.join(work, "synth")
+    t = time.perf_counter()
+    n = make_synth_deliver.write(data, TOOLS_PER_CELL, TOOLS_SEED)
+    line("tools", part="synth", samples=n,
+         seconds=f"{time.perf_counter() - t:.2f}")
+    per_split = n // 3
+    cfg_batch = 2            # deliver_tiny's samples_per_gpu
+    kernels.reset_launches()
+    t = time.perf_counter()
+    runner = train_tool.main([
+        "deliver_tiny", "--data-root", data, "--work-dir",
+        os.path.join(work, "train"), "--max-epochs", str(TOOLS_EPOCHS),
+        "--seed", str(TOOLS_SEED), "--cfg-options",
+        f"evaluation.interval={TOOLS_EVAL_INTERVAL}",
+        "log_config.interval=32"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    counts = dict(kernels.LAUNCHES)
+    evals = TOOLS_EPOCHS // TOOLS_EVAL_INTERVAL
+    steps = TOOLS_EPOCHS * (per_split // cfg_batch)
+    expect = tools_launches(steps, evals, per_split)
+    check(counts == expect, f"tools: train launches {counts} != {expect}")
+    check(runner.state.step == steps, f"tools: {runner.state.step} updates")
+    with open(os.path.join(work, "train", "train_log.jsonl")) as f:
+        log = [json.loads(r) for r in f]
+    losses = [r["loss"] for r in log if "loss" in r]
+    val = [(r["epoch"], r["eval"]["mIoU"]) for r in log if "eval" in r]
+    check(len(val) == evals and all(np.isfinite(losses)),
+          f"tools: {len(val)} evaluations, losses {losses[:3]}...")
+    best = os.path.join(work, "train", "ckpts", "best.pth")
+    t = time.perf_counter()
+    out = test_tool.main(["deliver_tiny", best, "--data-root", data,
+                          "--out-dir", os.path.join(work, "test")])
+    test_s = time.perf_counter() - t
+    with open(out) as f:
+        miou = json.load(f)["mIoU"]
+    line("tools", part="convergence", epochs=TOOLS_EPOCHS,
+         eval_interval=TOOLS_EVAL_INTERVAL, updates=runner.state.step,
+         first_loss=f"{losses[0]:.4f}", last_loss=f"{losses[-1]:.4f}",
+         val_miou=compact(val), test_miou=miou, jax_test_miou=JAX_SYNTH_MIOU,
+         launches=compact(counts), train_s=f"{train_s:.1f}",
+         test_s=f"{test_s:.1f}", gpu=repr(smi))
+    check(miou >= MIN_SYNTH_MIOU, f"tools: test mIoU {miou} after "
+          f"{TOOLS_EPOCHS} bf16 epochs < {MIN_SYNTH_MIOU} (JAX "
+          f"{JAX_SYNTH_MIOU})")
+    return counts, best, data, miou
+
+
+def tools_flops(torch, kernels):
+    """(d): tools/get_flops.py's count of the full-width deliver_rgblidar
+    forward at 1024^2 on the card's kernel path and on `meta`. Returns
+    the kernel path's launches."""
+    from multimodal_sam_adapter_torch.tools import get_flops
+
+    cfg = get_flops.model_config("deliver_rgblidar")
+    t = time.perf_counter()
+    n_meta, meta = get_flops.count(cfg, (1024, 1024), "meta")
+    meta_s = time.perf_counter() - t
+    kernels.reset_launches()
+    n_card, card = get_flops.count(cfg, (1024, 1024), "cuda")
+    counts = dict(kernels.LAUNCHES)
+    check(counts == PER_FORWARD, f"tools: get_flops launches {counts}")
+    m, c = meta.totals(), card.totals()
+    same = {k: m[k] == c[k] for k in m if k != "bytes"}
+    check(all(same.values()) and meta.kernels.keys() == card.kernels.keys(),
+          f"tools: the card's count {c} != meta's {m}")
+    check(n_meta == n_card and f"{n_meta / 1e6:.2f}" == FLAGSHIP_PARAMS_M,
+          f"tools: params {n_meta} / {n_card}")
+    line("tools", part="flops", params_m=f"{n_meta / 1e6:.2f}",
+         gflops=f"{m['flops'] / 1e9:.2f}",
+         card_gflops=f"{c['flops'] / 1e9:.2f}",
+         jax_xla_gflops=JAX_FLAGSHIP_GFLOPS,
+         ratio=f"{m['flops'] / 1e9 / JAX_FLAGSHIP_GFLOPS:.4f}",
+         split_gflops=compact({k: round(m[k] / 1e9, 3) for k in (
+             "products", "interpolations", "tensor_ops", "other_ops")}),
+         bytes_gb=f"{m['bytes'] / 1e9:.2f}",
+         card_bytes_gb=f"{c['bytes'] / 1e9:.2f}",
+         launches=compact(counts), meta_s=f"{meta_s:.1f}")
+    return counts
+
+
+def tools_files(work):
+    """(e): convert_deliver and color_gt on a raw DeLiVER tree of 1042^2
+    frames this phase writes: files/s, the labels remapped and coloured
+    as the root tools do."""
+    from multimodal_sam_adapter_torch.data import image_io
+    from multimodal_sam_adapter_torch.data.datasets import DELIVER_PALETTE
+    from multimodal_sam_adapter_torch.tools import color_gt, convert_deliver
+
+    rng = np.random.default_rng(SEED + 15)
+    raw, labels = os.path.join(work, "raw"), {}
+    for case in RAW_CASES:
+        for split in ("train", "val", "test"):
+            for i in range(RAW_FRAMES):
+                gt = _blocks(rng, (RAW_SIDE, RAW_SIDE), 26, 64).astype(
+                    np.uint8)
+                gt[rng.random(gt.shape) < 0.05] = 255
+                for mod, suffix, arr in (
+                        ("img", "rgb_front", _scene(rng, gt % 25,
+                                                    DELIVER_PALETTE, 12)),
+                        ("lidar", "lidar_front", _scene(
+                            rng, gt[::-1] % 25, DELIVER_PALETTE, 30)),
+                        ("semantic", "semantic_front", gt)):
+                    d = os.path.join(raw, mod, case, split, "MAP_1_point0")
+                    os.makedirs(d, exist_ok=True)
+                    image_io.imwrite(os.path.join(d, f"{i:06d}_{suffix}.png"),
+                                     arr)
+                labels[f"{case}_MAP_1_point0_{i:06d}_semantic_front.png",
+                       split] = gt
+    out = os.path.join(work, "converted")
+    t = time.perf_counter()
+    n = convert_deliver.convert(raw, out)
+    convert_s = time.perf_counter() - t
+    check(n == 3 * len(labels), f"tools: convert_deliver wrote {n} files")
+    split_dir = {"train": "training", "val": "validation", "test": "test"}
+    for (name, split), gt in labels.items():
+        want = gt.astype(np.int32)
+        want[want == 255] = 0
+        want = want - 1
+        want[want < 0] = 255
+        got = image_io.imread(os.path.join(
+            out, "samples", "annotations", split_dir[split], name),
+            "unchanged")
+        check(np.array_equal(got, want.astype(np.uint8)),
+              f"tools: {name} remapped wrongly")
+    ann = os.path.join(out, "samples", "annotations", "training")
+    colored = os.path.join(work, "colored")
+    t = time.perf_counter()
+    n_color = color_gt.color_dir("DELIVER", ann, colored)
+    color_s = time.perf_counter() - t
+    name = sorted(os.listdir(ann))[0]
+    check(np.array_equal(
+        image_io.imread(os.path.join(colored, name)),
+        color_gt.colorize(image_io.imread(os.path.join(ann, name),
+                                          "unchanged"), DELIVER_PALETTE)),
+        f"tools: {name} coloured wrongly")
+    line("tools", part="files", side=RAW_SIDE, converted=n,
+         convert_files_per_s=f"{n / convert_s:.2f}", colored=n_color,
+         color_files_per_s=f"{n_color / color_s:.2f}")
+
+
+def tools_checkpoints(torch, kernels, work, best, data, miou):
+    """(f): convert_checkpoints on a SAM ViT-L layout file (`sam`) and on
+    the trained model saved in the reference's DDP mmcv form (`full`):
+    the outputs load strictly through `load_state_dict_file('file://...')`
+    and tools/test.py, equal to the direct paths."""
+    from multimodal_sam_adapter_torch.engine.checkpoint import (
+        ingest_sam_pth, load_state_dict_file)
+    from multimodal_sam_adapter_torch.models.sam_vit import ImageEncoderViT
+    from multimodal_sam_adapter_torch.tools import convert_checkpoints
+    from multimodal_sam_adapter_torch.tools import test as test_tool
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    sam = os.path.join(work, "sam_vit_l.pth")
+    sam_checkpoint(torch, sam, g)
+    t = time.perf_counter()
+    out = convert_checkpoints.main(["sam", sam,
+                                    os.path.join(work, "sam.ckpt")])
+    sam_s = time.perf_counter() - t
+    got = load_state_dict_file("file://" + out)
+    want = ingest_sam_pth(sam, standalone=True)
+    check(got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want),
+        "tools: the converted SAM file differs from ingest_sam_pth's")
+    with torch.device("meta"):
+        enc = ImageEncoderViT()
+    enc.to_empty(device="cpu").load_state_dict(got, strict=True)
+    del got, want, enc
+
+    ref = os.path.join(work, "reference_full.pth")
+    sd = load_state_dict_file(best)
+    torch.save({"meta": {}, "state_dict": {"module." + k: v
+                                           for k, v in sd.items()},
+                "optimizer": {}}, ref)
+    full = convert_checkpoints.main(["full", ref, os.path.join(
+        work, "full.ckpt"), "--config", "deliver_tiny"])
+    res = test_tool.main(["deliver_tiny", full, "--data-root", data,
+                          "--out-dir", os.path.join(work, "test_full")])
+    with open(res) as f:
+        full_miou = json.load(f)["mIoU"]
+    check(full_miou == miou, f"tools: the converted checkpoint scores "
+          f"{full_miou}, the trained one {miou}")
+    line("tools", part="checkpoints", sam_convert_s=f"{sam_s:.1f}",
+         full_test_miou=full_miou)
+
+
+def tools_train_main(work, smi):
+    """Phase 15's (a)-(c) in a process of their own (started by
+    `start_tools_train` with `--tools-train`): the results to
+    <work>/result.json."""
+    import torch
+
+    from multimodal_sam_adapter_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.library()
+    counts, best, data, miou = tools_convergence(torch, kernels, smi, work)
+    with open(os.path.join(work, "result.json"), "w") as f:
+        json.dump(dict(counts=counts, best=best, data=data, miou=miou), f)
+
+
+class ToolsTrain:
+    """Phase 15's convergence run (`tools_train_main`) in a child process:
+    it starts when made, so that it overlaps the phases before 15 (the
+    full run starts it before phase 11, whose two ranks sharing the card
+    are a correctness run, not a speed figure); `result()` waits for it.
+    The child and its directory go at `close()` or at exit."""
+
+    def __init__(self, smi):
+        import atexit
+        import tempfile
+
+        self.work = tempfile.mkdtemp(prefix="msa_tools_")
+        self.log = os.path.join(self.work, "train.log")
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tools-train",
+                 self.work, smi], stdout=out, stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+        atexit.register(self.close)
+
+    def result(self):
+        rc = self.proc.wait(timeout=TOOLS_TRAIN_TIMEOUT)
+        with open(self.log) as f:
+            text = f.read()
+        for row in text.splitlines():
+            if row.startswith("[tools]"):
+                print(row, flush=True)
+        if rc != 0:
+            print(text[-4000:], file=sys.stderr, flush=True)
+        check(rc == 0, f"tools: the convergence run exited {rc}")
+        line("tools", part="child",
+             seconds=f"{time.perf_counter() - self.t0:.1f}")
+        with open(os.path.join(self.work, "result.json")) as f:
+            return json.load(f)
+
+    def close(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_tools(torch, kernels, smi, train_run):
+    """Phase 15: the port's tools on the card's machine and the
+    convergence run (`train_run`, a ToolsTrain). Returns the launches of
+    the train run and of the flagship count on the card."""
+    try:
+        res = train_run.result()
+        flops_counts = tools_flops(torch, kernels)
+        work = train_run.work
+        tools_files(work)
+        tools_checkpoints(torch, kernels, work, res["best"], res["data"],
+                          res["miou"])
+    finally:
+        train_run.close()
+    return dict(train=res["counts"], flops=flops_counts)
+
+
 def main(phases=None):
     """Every phase; with `phases` == ["ddp"], phases 1, 2 and 11 alone
     (the four-card run: phase 11 is what there is to see across cards);
     with ["files"], phases 1, 2 and 12; with ["m2f"], phases 1, 2 and
-    13; with ["rgb"], phases 1, 2 and 14."""
+    13; with ["rgb"], phases 1, 2 and 14; with ["tools"], 1, 2 and 15."""
     import torch
 
     kind, smi = phase_device(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import kernel_checks as kc
-    if phases in (["ddp"], ["files"], ["m2f"], ["rgb"]):
+    if phases in (["ddp"], ["files"], ["m2f"], ["rgb"], ["tools"]):
         from multimodal_sam_adapter_torch.ops import kernels
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3229,6 +3572,8 @@ def main(phases=None):
             phase_m2f(torch, kernels, smi, kc)
         elif phases == ["rgb"]:
             phase_rgb(torch, kernels, smi, kc)
+        elif phases == ["tools"]:
+            phase_tools(torch, kernels, smi, ToolsTrain(smi))
         else:
             (phase_ddp if phases == ["ddp"] else phase_files)(torch, kernels,
                                                               smi)
@@ -3285,6 +3630,7 @@ def main(phases=None):
     entry_counts = phase_train_entry(torch, kernels, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    tools_run = ToolsTrain(smi)      # phase 15's convergence run, meanwhile
     ddp_counts = phase_ddp(torch, kernels, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3295,6 +3641,9 @@ def main(phases=None):
     gc.collect()
     torch.cuda.empty_cache()
     rgb = phase_rgb(torch, kernels, smi, kc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools = phase_tools(torch, kernels, smi, tools_run)
 
     out = []
     for row in rows:
@@ -3319,6 +3668,8 @@ def main(phases=None):
                         rgb_launches=rgb["forward"][row["name"]],
                         rgb_train_launches=rgb["micro_step"][row["name"]],
                         encoder_launches=rgb["encoder"][row["name"]],
+                        tools_launches=tools["train"][row["name"]],
+                        flops_launches=tools["flops"][row["name"]],
                         max_abs_err=bf["max_abs_err"], ms=bf["ms"],
                         plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
                         bound_by=bf["bound_by"], dtype="bfloat16",
@@ -3334,12 +3685,14 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ddp-rank"]:
             ddp_rank_main(*sys.argv[2:4])
+        elif sys.argv[1:2] == ["--tools-train"]:
+            tools_train_main(*sys.argv[2:4])
         elif sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (
-                ["ddp"], ["files"], ["m2f"], ["rgb"]):
+                ["ddp"], ["files"], ["m2f"], ["rgb"], ["tools"]):
             main(sys.argv[2:])
         elif sys.argv[1:]:
             raise SystemExit(
-                f"usage: {sys.argv[0]} [--phase ddp|files|m2f|rgb]")
+                f"usage: {sys.argv[0]} [--phase ddp|files|m2f|rgb|tools]")
         else:
             main()
     except PhaseError as e:

@@ -5,10 +5,11 @@ Each case draws its inputs from a seeded generator on the card and calls a
 kernel's public wrapper: as is it launches the kernel, inside
 `kernels.plain_kernels()` it runs the plain version on the same inputs.
 Beside each case: the least time the card could take for the same work
-(`bound_ms`) and, for the attention kernels, one PyTorch call that computes
-the same function (`library_case`), timed as a yardstick only. K6 has no
-such call; cuDNN's `conv_transpose2d` computes its product alone
-(`product_case`), timed beside it as `product_ms`.
+(`bound_ms`, from utils/flops.py's `work`, which the package's work
+counter sums over a forward) and, for the attention kernels, one PyTorch
+call that computes the same function (`library_case`), timed as a
+yardstick only. K6 has no such call; cuDNN's `conv_transpose2d` computes
+its product alone (`product_case`), timed beside it as `product_ms`.
 
 Training: `function_check` holds a grad-recording call of K1-K5 (through
 its autograd Function) against the kernel's output and the plain
@@ -32,6 +33,7 @@ from multimodal_sam_adapter_torch.ops.flash_attention import flash_attention
 from multimodal_sam_adapter_torch.ops.msda_cuda import ms_deform_attn
 from multimodal_sam_adapter_torch.ops.pixel_shuffle import pixel_shuffle_up_bn
 from multimodal_sam_adapter_torch.ops.window_attention import window_attention
+from multimodal_sam_adapter_torch.utils.flops import attention_geometry, work
 
 # kernel name -> where it lives and which TPU kernel it replaces
 KERNELS: Dict[str, Dict[str, str]] = {
@@ -428,14 +430,6 @@ def attention_case(name: str, dtype: torch.dtype, g: torch.Generator,
     return fn, (qkv, rph, rpw, hw, heads, d ** -0.5)
 
 
-def _attention_geometry(args) -> Tuple[int, int, int, Tuple[int, int]]:
-    """(batch x heads, tokens, head width, (H, W)) of K1 / K2 args."""
-    qkv, _, _, hw, heads, _ = args
-    hw = (hw, hw) if isinstance(hw, int) else tuple(hw)
-    return (qkv.shape[0] * heads, qkv.shape[1], qkv.shape[2] // (3 * heads),
-            hw)
-
-
 def library_case(name: str, args: tuple) -> Tuple[Callable, tuple]:
     """One `F.scaled_dot_product_attention` call computing what K1 / K2
     compute on `args`: contiguous q, k, v (windows | B, heads, N, d) and
@@ -446,7 +440,7 @@ def library_case(name: str, args: tuple) -> Tuple[Callable, tuple]:
     if name not in ("window_attention", "flash_attention"):
         raise KeyError(f"{name}: no single library call computes it")
     qkv, rph, rpw, _, heads, scale = args
-    BM, N, d, (H, W) = _attention_geometry(args)
+    BM, N, d, (H, W) = attention_geometry(args)
     q, k, v = (t.reshape(-1, heads, N, d).contiguous()
                for t in split_heads(qkv, heads))
     rel_h, rel_w = rel_pos_bias_terms(q.view(BM, N, d).float(), rph.float(),
@@ -489,48 +483,6 @@ def time_library(name: str, args: tuple, iters: int = 10
     if best is None:
         raise RuntimeError(f"{name}: no SDPA backend takes the call")
     return best
-
-
-def work(name: str, args: tuple, out: torch.Tensor) -> Dict[str, float]:
-    """What the function must do on `args`, whatever a kernel does again:
-    bytes (each tensor input read once, the output written once) and
-    operations, split into those of the tensor cores (matrix products; in
-    float32 they run on the CUDA cores all the same) and the rest."""
-    if name == "convnext_block":  # out has x's shape (not a guarded buffer's)
-        out = args[0]
-    nbytes = sum(a.numel() * a.element_size() for a in args
-                 if torch.is_tensor(a)) + out.numel() * out.element_size()
-    tensor_ops = other_ops = 0.0
-    if name in ("window_attention", "flash_attention"):
-        BM, N, d, (H, W) = _attention_geometry(args)
-        # q.k and p.v; q against the gathered rel-pos rows of each (query,
-        # key row) and (query, key column); bias add, max, exp, sum, scale
-        tensor_ops = BM * (4.0 * N * N * d + 2.0 * N * (H + W) * d)
-        other_ops = BM * 6.0 * N * N
-    elif name in ("msda_multi_level", "msda_single_level"):
-        value, shapes, _, offs, _, heads, points = args
-        B, Lq, _ = offs.shape
-        D = value.shape[-1] // heads
-        samples = B * Lq * heads * len(shapes) * points
-        # four corner weights and a bilinear sum of D values per sample
-        other_ops = samples * (16.0 + 8.0 * D)
-    elif name == "convnext_block":
-        x = args[0]
-        B, H, W, C = x.shape
-        P = B * H * W
-        tensor_ops = 2.0 * P * C * 4 * C * 2          # fc1 and fc2
-        # dwconv 7x7, LayerNorm, GELU of the 4C hidden units, gamma, add
-        other_ops = P * C * (2.0 * 49 + 10 + 4 * 8)
-    elif name == "pixel_shuffle_up_bn":
-        c2, weight = args[0], args[1]
-        B, C, H, W = c2.shape
-        O = weight.shape[1]
-        tensor_ops = 2.0 * B * H * W * C * 4 * O
-        other_ops = 4.0 * B * H * W * 4 * O            # + c1 + x1, affine
-    else:
-        raise KeyError(name)
-    return dict(bytes=float(nbytes), tensor_ops=tensor_ops,
-                other_ops=other_ops)
 
 
 def msda_gather_bytes(args: tuple) -> float:

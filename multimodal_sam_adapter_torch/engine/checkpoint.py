@@ -1,6 +1,5 @@
 """Checkpoints of the port: the counterpart of
-multimodal_sam_adapter_tpu/engine/checkpoint.py, in torch files and
-without its URL resolution (the port reads local files only).
+multimodal_sam_adapter_tpu/engine/checkpoint.py, in torch files.
 
 - `save_checkpoint` writes `<ckpt_dir>/step_<N>.pth` (or `<tag>.pth`, e.g.
   `best.pth`) in the reference's mmcv form, {"meta", "state_dict",
@@ -13,7 +12,9 @@ without its URL resolution (the port reads local files only).
 - `load_state_dict_file` reads the model's state_dict from any of the
   forms the reference writes: the mmcv container, `{"model": ...}` or a
   bare state_dict, with DistributedDataParallel's `module.` prefix
-  stripped; `read_checkpoint` also returns the container's `meta`;
+  stripped; `read_checkpoint` also returns the container's `meta`. Both
+  take a path or a URL (`resolve_checkpoint_source`), and so do the
+  ingestion functions below;
 - `ingest_sam_pth`, `ingest_convnext_pth` and `merge_pretrained`: a SAM
   image encoder and an ImageNet ConvNeXt into the segmentor's state_dict
   (an RGB-only segmentor takes the SAM encoder alone: it has no ConvNeXt),
@@ -56,6 +57,35 @@ def _load(path, device="cpu"):
             f"(save its state_dict alone): {e}") from e
 
 
+def resolve_checkpoint_source(path: str,
+                              cache_dir: Optional[str] = None) -> str:
+    """A checkpoint source as a local path: an http(s):// or file:// URL is
+    fetched once into `cache_dir` (default
+    ~/.cache/multimodal_sam_adapter_torch/checkpoints, or
+    $MSA_CHECKPOINT_CACHE), as <sha256 of the URL, 16 hex digits>_<its
+    basename>, through a `.part` file renamed into place; later calls find
+    it there. Any other string is returned unchanged. The reference's
+    pavi://, s3:// and open-mmlab:// schemes are internal services and
+    are not read."""
+    if not re.match(r"^(https?|file)://", path):
+        return path
+    import hashlib
+    import urllib.request
+
+    cache_dir = (cache_dir or os.environ.get("MSA_CHECKPOINT_CACHE")
+                 or os.path.expanduser(
+                     "~/.cache/multimodal_sam_adapter_torch/checkpoints"))
+    os.makedirs(cache_dir, exist_ok=True)
+    name = os.path.basename(path.split("?")[0]) or "checkpoint"
+    dest = os.path.join(cache_dir, hashlib.sha256(
+        path.encode()).hexdigest()[:16] + "_" + name)
+    if not os.path.exists(dest):
+        tmp = dest + ".part"
+        urllib.request.urlretrieve(path, tmp)
+        os.replace(tmp, dest)
+    return dest
+
+
 def load_state_dict_file(path: str, device="cpu") -> Dict[str, torch.Tensor]:
     """The state_dict in the checkpoint file `path`, its tensors on
     `device`: unwrapped from `state_dict`, else `model` (the first of the
@@ -67,8 +97,8 @@ def load_state_dict_file(path: str, device="cpu") -> Dict[str, torch.Tensor]:
 def read_checkpoint(path: str, device="cpu"
                     ) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(`load_state_dict_file`'s state_dict, the container's `meta` or {})
-    from one read of the file."""
-    ckpt = _load(path, device)
+    from one read of the file (`path` a path or a URL)."""
+    ckpt = _load(resolve_checkpoint_source(path), device)
     meta = ckpt.get("meta") if isinstance(ckpt, dict) else None
     meta = meta if isinstance(meta, dict) else {}
     for key in CONTAINER_KEYS:

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ...nn.layers import KeyedDraws
+from ...ops.kernels import autocast_off
 from .pixel_decoder import MSDeformAttnPixelDecoder
 from .positional_encoding import sine_positional_encoding
 from .transformer_decoder import Mask2FormerDecoder, TransformerDecoder
@@ -29,7 +30,7 @@ def semantic_inference(cls_logits: torch.Tensor, mask_logits: torch.Tensor
                        ) -> torch.Tensor:
     """(B, Q, K + 1) x (B, Q, h, w) -> (B, K, h, w) float32 scores, with
     autocast off."""
-    with torch.autocast(cls_logits.device.type, enabled=False):
+    with autocast_off(cls_logits.device):
         probs = cls_logits.float().softmax(-1)[..., :-1]
         return torch.einsum("bqk,bqhw->bkhw", probs,
                             mask_logits.float().sigmoid())

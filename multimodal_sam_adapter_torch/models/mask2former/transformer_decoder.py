@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.kernels import autocast_off
 from ...utils.interpolate import resize_bilinear
 from .pixel_decoder import FFN
 
@@ -41,7 +42,7 @@ class _PackedAttention(nn.Module):
 
 def float32_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q @ k^T in float32, autocast off: (..., Nq, d) x (..., Nk, d)."""
-    with torch.autocast(q.device.type, enabled=False):
+    with autocast_off(q.device):
         return torch.matmul(q.float(), k.float().transpose(-1, -2))
 
 

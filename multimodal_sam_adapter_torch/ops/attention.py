@@ -110,7 +110,7 @@ def rel_pos_bias_terms(q: torch.Tensor, rel_pos_h: torch.Tensor,
 def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q k^T (..., Nq, Nk) in float32 from q and k as they are (a bf16
     product is exact in float32), with autocast off."""
-    with torch.autocast(q.device.type, enabled=False):
+    with kernels.autocast_off(q.device):
         return torch.matmul(q.float(), k.float().transpose(-2, -1))
 
 

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from . import kernels
 
 # the bf16 launch plan (csrc/convnext_block.cu)
@@ -111,6 +112,7 @@ def scratch_shapes(B: int, H: int, W: int, C: int,
     return (P, C), (P, HID)
 
 
+@flops.counted("convnext_block")
 def convnext_block(x: torch.Tensor, dw: torch.Tensor, dw_b: torch.Tensor,
                    ln_g: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
@@ -131,6 +133,7 @@ def convnext_block(x: torch.Tensor, dw: torch.Tensor, dw_b: torch.Tensor,
     return convnext_block_cuda(x, *params, eps, out)
 
 
+@flops.counted("convnext_block")
 def convnext_block_delta(x: torch.Tensor, dw: torch.Tensor,
                          dw_b: torch.Tensor, ln_g: torch.Tensor,
                          ln_b: torch.Tensor, w1: torch.Tensor,

@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import flops
 from . import kernels
 from .attention import (attention_with_decomposed_rel_pos,
                         check_table_parts, get_rel_pos, merge_heads,
@@ -72,6 +73,7 @@ def rel_terms(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     return rel_h.contiguous(), rel_w.contiguous()
 
 
+@flops.counted("flash_attention")
 def flash_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                     rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
                     num_heads: int, scale: float) -> torch.Tensor:

@@ -18,7 +18,7 @@ Dispatch rule shared by every kernel wrapper (`use_kernel`):
   `custom_vjp`s have it. K6 has no Function (the JAX package runs it in
   eval only) and refuses such a call before launching;
 - a CPU tensor goes through the kernel's plain PyTorch version, gradients
-  and all;
+  and all; so does a `meta` tensor (shapes only, for utils/flops.py);
 - inside `plain_kernels()` CUDA tensors take the plain version too. Only
   comparisons of a kernel against its plain version enter it.
 
@@ -115,10 +115,12 @@ def plain_kernels():
 
 
 def on_kernel_device(x: torch.Tensor) -> bool:
-    """True: `x` goes to the CUDA kernel; False: to the plain version."""
+    """True: `x` goes to the CUDA kernel; False: to the plain version (CPU
+    tensors, and `meta` ones, whose plain version gives the output's shape
+    without computing it: utils/flops.py counts there)."""
     if x.device.type == "cuda":
         return not _state.force_plain
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return False
     raise RuntimeError(f"no kernel and no plain path for device {x.device}")
 
@@ -161,6 +163,14 @@ def plain_vjp(plain, inputs, args, grad_out, needs):
         wrt = [t for t in leaves if t.requires_grad]
         grads = iter(torch.autograd.grad(out, wrt, grad_out.to(out.dtype)))
     return tuple(next(grads) if need else None for need in needs)
+
+
+def autocast_off(device: torch.device):
+    """A context with autocast off on `device`'s type; a null context on
+    `meta`, where autocast does not exist (and so is never on)."""
+    if device.type == "meta":
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, enabled=False)
 
 
 def autocast_dtype(x: torch.Tensor) -> Optional[torch.dtype]:

@@ -25,6 +25,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from . import kernels
 
 Shapes = Sequence[Tuple[int, int]]
@@ -91,6 +92,7 @@ def pointer_alignment(t: torch.Tensor) -> int:
     return 16 if ptr % 16 == 0 else ptr & -ptr
 
 
+@flops.counted(lambda args: kernel_name(len(args[1])))
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Shapes,
                    reference_points: torch.Tensor, offsets: torch.Tensor,
                    attn_logits: torch.Tensor, n_heads: int,

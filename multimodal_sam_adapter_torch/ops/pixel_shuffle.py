@@ -23,6 +23,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from . import kernels
 
 # the bf16 kernel (csrc/pixel_shuffle.cu): a tile is TILE_M pixels of one
@@ -124,6 +125,7 @@ def _strides(t: torch.Tensor):
     return tuple(s)
 
 
+@flops.counted("pixel_shuffle_up_bn")
 def pixel_shuffle_up_bn(c2: torch.Tensor, weight: torch.Tensor,
                         c1: torch.Tensor, x1: torch.Tensor,
                         scale: torch.Tensor, shift: torch.Tensor

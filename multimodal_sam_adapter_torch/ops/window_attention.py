@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from ..utils import flops
 from . import kernels
 from .attention import (attention_with_decomposed_rel_pos,
                         check_table_parts, get_rel_pos, merge_heads,
@@ -67,6 +68,7 @@ def _expansion_on(ws: int, keys: int, device: torch.device) -> torch.Tensor:
     return window_expansion(ws, keys).to(device=device, dtype=torch.bfloat16)
 
 
+@flops.counted("window_attention")
 def window_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                      rel_pos_w: torch.Tensor, ws: int, num_heads: int,
                      scale: float) -> torch.Tensor:

@@ -50,7 +50,8 @@ def parse_args(argv=None):
     p.add_argument("--data-root", required=True)
     p.add_argument("--work-dir", default=None)
     p.add_argument("--load-from", default=None,
-                   help="start from these weights (fresh optimizer)")
+                   help="start from these weights (fresh optimizer); a path "
+                        "or an http(s):// / file:// URL")
     p.add_argument("--resume-from", default=None,
                    help="resume model, optimizer and step from a "
                         "checkpoint written by this entry")
@@ -58,9 +59,10 @@ def parse_args(argv=None):
                    help="resume from the newest step_<N>.pth in "
                         "<work-dir>/ckpts, if there is one")
     p.add_argument("--sam-pretrained", default=None,
-                   help=".pth SAM checkpoint to ingest")
+                   help=".pth SAM checkpoint to ingest (path or URL)")
     p.add_argument("--convnext-pretrained", default=None,
-                   help=".pth ConvNeXt checkpoint to ingest (both branches)")
+                   help=".pth ConvNeXt checkpoint to ingest (both branches; "
+                        "path or URL)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--deterministic", action="store_true",
                    help="cuDNN deterministic and not benchmarking, as the "
