@@ -114,12 +114,26 @@ Phases, one line each; any failure exits non-zero before the last line:
    within 1e-3 x max|logits|, and in bf16 through InferenceEngine.predict
    the class maps agreeing on >= 98%; the launches of one forward
    (K1 20, K2 4, K3 4, K4 6, K5 72, K6 1), K1 and K2 called with 16 /
-   ranks heads and K3 and K4 with 16 / ranks heads. Prints each rank's
-   micro-step ms with and without no_sync, three all-reduces' ms of the
-   gradient volume, peak GiB (the step's beside ZeRO's), ZeRO's state
-   GiB, TP's ms a forward and all-reduces, beside the card's name and
-   power limit. Two ranks sharing one card over gloo are a correctness
-   run, not a speed figure.
+   ranks heads and K3 and K4 with 16 / ranks heads; (e) the float32
+   train step with tensor parallelism on a (ranks // 2, 2) mesh
+   (parallel/tp.py: the backward's model-group all-reduces, DDP and the
+   BatchNorm statistics over the data groups, the optimizer on the
+   shards), one 1024^2 sample a data rank, grad_accum 2, one update,
+   against this process's step on the same global batch: the data ranks'
+   mean loss within 1e-3 relative, the gradients and updated parameters
+   within 1e-2 relative L2 as a whole and for each tensor of the split
+   modules (the gathered shares and the whole tensors they use), the
+   BatchNorm statistics within 1e-3 relative, all equal across the data
+   ranks, K1-K4 called with 8 heads, the launches of each micro-step a
+   rank those of one process's (K1 40, K2 8, K3 8, K4 12, K5 144, K6 0);
+   then one bf16 micro-step, timed, its loss finite. Prints each rank's micro-step ms
+   with and without no_sync, three all-reduces' ms of the gradient
+   volume, peak GiB (the step's beside ZeRO's and TP's), ZeRO's state
+   GiB, TP's ms a forward and all-reduces, the TP micro-step's ms, its
+   forward, recompute and backward all-reduces and its data group's
+   gradient all-reduce GB and ms, beside the card's name and power
+   limit. Two ranks sharing one card over gloo are a correctness run,
+   not a speed figure.
 12. files: the entries on image files, at full width, in a temporary
    directory removed at the end. (a) The port's PNG writer
    (data/image_io.py; the row filters None, Sub, Up, Average and Paeth in
@@ -230,9 +244,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    waits for it, then runs (d)-(f).
 
 `python3 chip_smoke.py --phase ddp` runs phases 1, 2 and 11 alone (the
-four-card run); `--phase files` runs phases 1, 2 and 12; `--phase m2f`
-phases 1, 2 and 13; `--phase rgb` phases 1, 2 and 14; `--phase tools`
-phases 1, 2 and 15.
+four-card run); `--phase tp` phases 1, 2 and phase 11's part (e) alone
+(the tensor-parallel step, the path that spans cards); `--phase files`
+phases 1, 2 and 12; `--phase m2f` phases 1, 2 and 13; `--phase rgb`
+phases 1, 2 and 14; `--phase tools` phases 1, 2 and 15.
 
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -293,8 +308,21 @@ DDP_MICRO_STEPS = 2
 DDP_RUNNER_SAMPLES, DDP_VAL_SAMPLES = 4, 1
 DDP_LOSS_RTOL = DDP_STATS_RTOL = 1e-3
 DDP_STATS_ATOL = 1e-6
-DDP_TIMEOUT = 720              # seconds for the ranks together
+DDP_TIMEOUT = 900              # seconds for the ranks together
 TP_REQUESTS = 3                # timed bf16 TP forwards after a first
+# part (e): the train step on a (ranks // 2, TP_TRAIN_MODEL) mesh, one
+# 1024^2 sample a data rank, grad_accum DDP_MICRO_STEPS, one update. The
+# gradients and parameters are held to TRAIN_GRAD_REL_F32 relative L2 as
+# a whole, as part (a) holds DDP's, and so is each tensor of the modules
+# tensor parallelism splits: of its own L2 norm, or of TP_REL_FLOOR x the
+# whole's RMS x sqrt(its size) where that is larger (a gradient of
+# round-off). The replicated modules' tensors one by one move with the
+# data split's arithmetic (one sample a rank against the global batch in
+# one process): on four ranks the neck's FFRM GroupNorm biases, behind a
+# ReLU on a pooled 1x1 map, moved 0.48 under DDP alone on the same split
+TP_TRAIN_MODEL = 2
+TP_REL_FLOOR = 1e-3
+DDP_PARTS = "abcde"            # phase 11's parts; `--phase tp` runs "e"
 # phase 12: the DeLiVER samples on file (their conditions and cases route
 # the report), the MUSES record, the PNG row filters taken in turn, the
 # scanlines the numpy twin unfilters beside the host core
@@ -1396,20 +1424,6 @@ def phase_train_entry(torch, kernels, smi):
 
 # --------------------------------------------------------------- phase 11
 
-def _free_port():
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_env(rank, world, port):
-    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                MASTER_PORT=str(port))
-
-
 def ddp_ranks(torch):
     """Phase 11's ranks: one a card where there are two or more, else two
     sharing card 0."""
@@ -1494,7 +1508,7 @@ def phase_ddp_reference(torch, kernels, work):
     ranks."""
     from multimodal_sam_adapter_torch.parallel import ddp
 
-    env = _rank_env(0, 1, _free_port())
+    env = ddp.rank_env(0, 1, ddp.free_port())
     before = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -1544,74 +1558,97 @@ def phase_ddp_reference(torch, kernels, work):
     torch.cuda.empty_cache()
 
 
-def phase_ddp(torch, kernels, smi):
-    """Phase 11: the reference in this process, then `ddp_ranks` rank
+def tp_train_reference(torch, kernels, work):
+    """Part (e)'s single process: the float32 step on its global batches
+    (micro-step i holds the data ranks' samples, one each; grad_accum 2,
+    one update), saved to the host for the ranks."""
+    data = ddp_ranks(torch) // TP_TRAIN_MODEL
+    samples = ddp_samples(torch, data)
+    glob = [(torch.cat([img for img, _ in samples[i:i + data]]),
+             torch.cat([gt for _, gt in samples[i:i + data]]))
+            for i in range(0, len(samples), data)]
+    tp = step_run(torch, kernels, glob, DDP_MICRO_STEPS, lambda m: m,
+                  grads_on="cpu")
+    torch.save(dict(losses=tp["losses"], grads=tp["grads"],
+                    params=_host_copy(torch, tp["params"]),
+                    stats=_host_copy(torch, tp["stats"])),
+               work / "tp_reference.pt")
+    line("ddp", reference="1 process, float32, part (e)'s global batch "
+         f"{data}x1024x1024x6, grad_accum {DDP_MICRO_STEPS}",
+         losses=compact([round(v, 6) for v in tp["losses"]]),
+         micro_step_ms=compact([round(v, 1) for v in tp["ms"]]))
+    del tp, samples, glob
+    torch.cuda.empty_cache()
+
+
+def phase_ddp(torch, kernels, smi, parts=DDP_PARTS):
+    """Phase 11: the references in this process, then `ddp_ranks` rank
     processes of this script (gloo sharing card 0 on a one-card machine,
-    NCCL with a card each otherwise) run the step, the runner, the step
-    with ZeRO and the tensor-parallel forward. Returns rank 0's launches
-    of one micro-step of the step through DistributedDataParallel
-    (`ddp`), of one with ZeRO (`zero`) and of one TP forward (`tp`)."""
+    NCCL with a card each otherwise) run `parts`: (a) the step, (b) the
+    runner, (c) the step with ZeRO, (d) the tensor-parallel forward, (e)
+    the tensor-parallel step. Returns rank 0's launches of one micro-step
+    of the step through DistributedDataParallel (`ddp`), of one with ZeRO
+    (`zero`), of one TP forward (`tp`) and of one TP micro-step
+    (`tp_train`), those of `parts`."""
     import shutil
     import tempfile
 
+    from multimodal_sam_adapter_torch.parallel.ddp import launch_ranks
+
     work = Path(tempfile.mkdtemp(prefix="msa_ddp_"))
     try:
-        phase_ddp_reference(torch, kernels, work)
+        if "a" in parts or "c" in parts:
+            phase_ddp_reference(torch, kernels, work)
+        if "e" in parts:
+            tp_train_reference(torch, kernels, work)
         cards = torch.cuda.device_count()
         world = ddp_ranks(torch)
         backend = "nccl" if cards >= world else "gloo"
-        port = _free_port()
-        procs = [subprocess.Popen(
+        ranks = launch_ranks(
             [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
-             str(work), backend],
-            env=dict(os.environ, **_rank_env(r, world, port)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)]
-        logs, timed_out = [], False
-        t0 = time.perf_counter()
-        for p in procs:
-            try:
-                out, _ = p.communicate(
-                    timeout=max(1.0, DDP_TIMEOUT - (time.perf_counter()
-                                                    - t0)))
-            except subprocess.TimeoutExpired:
-                timed_out = True
-                for q in procs:
-                    q.kill()
-                out, _ = p.communicate()
-            logs.append(out)
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            text = log if p.returncode == 0 else log[-6000:]
-            for ln in text.splitlines():
-                if ln.startswith(("[ddp", "FAILED")) or p.returncode:
+             str(work), backend, parts], world, DDP_TIMEOUT)
+        for rc, log in ranks:
+            for ln in (log if rc == 0 else log[-6000:]).splitlines():
+                if ln.startswith(("[ddp", "FAILED")) or rc != 0:
                     print(ln, flush=True)
-        check(not timed_out, f"ddp: the ranks ran past {DDP_TIMEOUT} s")
-        check(all(p.returncode == 0 for p in procs),
-              f"ddp: rank exit codes {[p.returncode for p in procs]}")
+        codes = [rc for rc, _ in ranks]
+        check(None not in codes, f"ddp: the ranks ran past {DDP_TIMEOUT} s")
+        check(codes == [0] * world, f"ddp: rank exit codes {codes}")
         results = [json.loads((work / f"rank{r}.json").read_text())
                    for r in range(world)]
         shared = cards < world
+        # printed name <- each rank's result (a list), or rank 0's alone
+        each = dict(step_micro_step_ms="step_ms",
+                    all_reduce_ms="all_reduce_ms",
+                    runner_micro_step_ms="runner_ms",
+                    peak_mem_gib="peak_gib", step_peak_gib="step_peak_gib",
+                    zero_peak_gib="zero_peak_gib",
+                    zero_state_gib="zero_state_gib",
+                    zero_micro_step_ms="zero_ms", tp_ms_per_forward="tp_ms",
+                    unsharded_ms_per_forward="tp_whole_ms",
+                    tp_train_micro_step_ms_f32_f32_bf16="tp_train_ms",
+                    tp_train_peak_gib="tp_train_peak_gib",
+                    tp_train_data_all_reduce_ms="tp_train_all_reduce_ms")
+        first = dict(all_reduce_gb="all_reduce_gb",
+                     tp_all_reduces="tp_all_reduces",
+                     tp_train_all_reduces_fwd_recompute_bwd=(
+                         "tp_train_all_reduces"),
+                     tp_train_data_all_reduce_gb="tp_train_all_reduce_gb")
+        got = {k: compact([r[v] for r in results])
+               for k, v in each.items() if v in results[0]}
+        got.update({k: results[0][v] for k, v in first.items()
+                    if v in results[0]})
+        if "e" in parts:
+            got["tp_train_mesh"] = (f"data{world // TP_TRAIN_MODEL}"
+                                    f"xmodel{TP_TRAIN_MODEL}")
         line("ddp", ranks=world, backend=backend, cards=cards,
-             shared_card=shared,
-             step_micro_step_ms=compact([r["step_ms"] for r in results]),
-             all_reduce_ms=compact([r["all_reduce_ms"] for r in results]),
-             all_reduce_gb=results[0]["all_reduce_gb"],
-             runner_micro_step_ms=compact([r["runner_ms"] for r in results]),
-             peak_mem_gib=compact([r["peak_gib"] for r in results]),
-             step_peak_gib=compact([r["step_peak_gib"] for r in results]),
-             zero_peak_gib=compact([r["zero_peak_gib"] for r in results]),
-             zero_state_gib=compact([r["zero_state_gib"] for r in results]),
-             zero_micro_step_ms=compact([r["zero_ms"] for r in results]),
-             tp_ms_per_forward=compact([r["tp_ms"] for r in results]),
-             unsharded_ms_per_forward=compact([r["tp_whole_ms"]
-                                               for r in results]),
-             tp_all_reduces=results[0]["tp_all_reduces"],
-             card=repr(smi), note=(
+             shared_card=shared, parts=parts, **got, card=repr(smi), note=(
                  "not a speed claim: ranks sharing one card over gloo say "
                  "nothing of NCCL across cards" if shared else
                  "one card a rank over NCCL"))
         return {part: results[0][f"{part}_launches"]
-                for part in ("ddp", "zero", "tp")}
+                for part in ("ddp", "zero", "tp", "tp_train")
+                if f"{part}_launches" in results[0]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2076,9 +2113,224 @@ def ddp_rank_tp(torch, kernels, rank, world):
                 tp_all_reduces=reduces)
 
 
-def ddp_rank_main(work, backend):
+def _same_in_group(torch, tensors, group, src):
+    """True on every rank when `tensors` (a name -> tensor dict, the same
+    names on every rank of `group`) are bit-equal to those of global rank
+    `src`, a member of `group`; every rank of the process group calls it
+    (the flag's reduction spans them all)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).float()
+                      for t in tensors.values()])
+    theirs = flat.clone()
+    if dist.get_world_size(group) > 1:
+        dist.broadcast(theirs, src=src, group=group)
+    same = torch.equal(flat, theirs)
+    del flat, theirs
+    flag = torch.tensor([1 if same else 0], device="cuda")
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _rel_each(torch, got, want, inside):
+    """(relative L2 of the whole, [worst relative L2, its name] among the
+    tensors named in `inside`, the same among the others): each tensor's
+    error over the larger of its own L2 norm and TP_REL_FLOOR x the whole
+    reference's RMS x sqrt(its size)."""
+    norms = {n: w.float().norm().item() for n, w in want.items()}
+    size = sum(w.numel() for w in want.values())
+    rms = (sum(v * v for v in norms.values()) / size) ** 0.5
+    num = den = 0.0
+    worst = {True: [-1.0, ""], False: [-1.0, ""]}
+    for n, w in want.items():
+        err = (got[n].float() - w.to(got[n].device).float()).norm().item()
+        num += err * err
+        den += norms[n] ** 2
+        rel = err / max(norms[n], TP_REL_FLOOR * rms * w.numel() ** 0.5)
+        if rel > worst[n in inside][0]:
+            worst[n in inside] = [rel, n.replace("backbone.", "")]
+    return (num / den) ** 0.5, worst[True], worst[False]
+
+
+def ddp_rank_tp_train(torch, kernels, rank, world, work):
+    """Part (e) on one rank: the float32 train step with tensor
+    parallelism on a (world // 2, 2) mesh (parallel/tp.py; DDP and the
+    BatchNorm statistics over the data group), the rank's data row's
+    sample each micro-step, grad_accum DDP_MICRO_STEPS, one update,
+    against the one process on the global batch; then one bf16
+    micro-step, timed."""
+    import torch.distributed as dist
+
+    from multimodal_sam_adapter_torch.configs.registry import get_config
+    from multimodal_sam_adapter_torch.engine.train import (init_train_state,
+                                                           make_train_step)
+    from multimodal_sam_adapter_torch.parallel import (all_reduce_sum,
+                                                       wrap_model)
+    from multimodal_sam_adapter_torch.parallel.tp import (RowParallelLinear,
+                                                          gather_over_model,
+                                                          make_mesh,
+                                                          sharded_plan)
+
+    data = world // TP_TRAIN_MODEL
+    mesh = make_mesh(data, TP_TRAIN_MODEL)
+    mine = ddp_samples(torch, data)[mesh.data_rank::data]
+    base = _fresh_peak(torch)
+    cfg = get_config("deliver_rgblidar")
+    state = init_train_state(cfg["model"], "cuda", seed=SEED, init="jax",
+                             optimizer_kwargs=dict(
+                                 cfg["optimizer"],
+                                 grad_accum_steps=DDP_MICRO_STEPS),
+                             mesh=mesh)
+    state.seed = SEED + 1
+    named = dict(state.model.named_parameters())
+    plan = sharded_plan(state.model)
+    # the split modules' parameters: the shares and the whole ones
+    inside = {f"{prefix}.{n}" for prefix, m in state.model.named_modules()
+              if any(isinstance(c, RowParallelLinear) for c in m.children())
+              for n, _ in m.named_parameters()}
+    grads = {}
+
+    def before_update(optimizer, args, kwargs):
+        if optimizer.mini_step + 1 == DDP_MICRO_STEPS:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in named.items()})
+
+    state.optimizer.register_step_pre_hook(before_update)
+    model = wrap_model(state.model, mesh.data_group)
+    steps = {dtype: make_train_step(model, state.optimizer, mesh=mesh,
+                                    compute_dtype=dtype)
+             for dtype in (None, torch.bfloat16)}
+    losses, ms, launches, counts = [], [], [], []
+    with HeadsSeen() as heads:
+        for i, (img, gt) in enumerate(mine + mine[:1]):
+            dtype = None if i < DDP_MICRO_STEPS else torch.bfloat16
+            torch.cuda.synchronize()
+            dist.barrier()
+            kernels.reset_launches()
+            mesh.reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = steps[dtype](state, dict(img=img, gt=gt))  # main path
+            end.record()
+            torch.cuda.synchronize()
+            launches.append(dict(kernels.LAUNCHES))
+            counts.append([mesh.all_reduces, mesh.recompute_all_reduces,
+                           mesh.backward_all_reduces])
+            ms.append(round(start.elapsed_time(end), 1))
+            losses.append(res["loss"].item())
+            if i == DDP_MICRO_STEPS - 1:
+                params = {n: p.detach().clone() for n, p in named.items()}
+                stats = {n: b.clone() for n, b in
+                         state.model.named_buffers()
+                         if n.endswith(("running_mean", "running_var"))}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    numel = sum(p.numel() for p in named.values())
+    del steps, model, state, named, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def whole(tensors):
+        return {n: gather_over_model(t, plan[n], mesh) if n in plan else t
+                for n, t in tensors.items()}
+
+    ref = torch.load(work / "tp_reference.pt", mmap=True, weights_only=True)
+    loss_mean = (all_reduce_sum(torch.tensor(losses[:DDP_MICRO_STEPS],
+                                             device="cuda"),
+                                mesh.data_group) / data).tolist()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_mean,
+                                                        ref["losses"]))
+    mine_grads = grads
+    grads = whole(grads)
+    grad_rel, grad_in, grad_out = _rel_each(torch, grads, ref["grads"],
+                                            inside)
+    same = _same_in_group(torch, mine_grads, mesh.data_group,
+                          mesh.model_rank)
+    del grads, mine_grads
+    torch.cuda.empty_cache()
+    mine_params = params
+    params = whole(params)
+    param_rel, param_in, param_out = _rel_each(torch, params,
+                                               ref["params"], inside)
+    same &= _same_in_group(torch, mine_params, mesh.data_group,
+                           mesh.model_rank)
+    del params, mine_params
+    torch.cuda.empty_cache()
+    # the BatchNorm statistics after the float32 micro-steps, as part (a)
+    # holds them
+    stats_rel, stats_worst = max(
+        ((stats[n] - w.to("cuda")).abs().max().item()
+         / (w.abs().max().item() + DDP_STATS_ATOL / DDP_STATS_RTOL), n)
+        for n, w in ref["stats"].items())
+    same &= _same_in_group(torch, stats, mesh.data_group, mesh.model_rank)
+    ref_losses = list(ref["losses"])
+    del ref, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the data group's all-reduce of this rank's gradient volume
+    all_reduce_ms = []
+    if data > 1:
+        buf = torch.ones(numel, device="cuda")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            dist.all_reduce(buf, group=mesh.data_group)
+            torch.cuda.synchronize()
+            all_reduce_ms.append(round((time.perf_counter() - t) * 1e3, 1))
+        del buf
+    bb = cfg["model"]["backbone"]
+    want_heads = {k: {bb["num_heads"] // TP_TRAIN_MODEL}
+                  for k in ("window_attention", "flash_attention")}
+    want_heads.update({k: {bb["deform_num_heads"] // TP_TRAIN_MODEL}
+                       for k in ("msda_multi_level", "msda_single_level")})
+    launches_ok = all(c == PER_MICRO_STEP for c in launches)
+    finite = all(np.isfinite(v) for v in losses)
+    line(f"ddp rank {rank}", part="e", dtype="f32",
+         mesh=f"data{data}xmodel{TP_TRAIN_MODEL}",
+         data_rank=mesh.data_rank, model_rank=mesh.model_rank,
+         grad_accum=DDP_MICRO_STEPS, updates=1,
+         loss_mean=compact([round(v, 6) for v in loss_mean]),
+         loss_ref=compact([round(v, 6) for v in ref_losses]),
+         loss_rel_err=f"{loss_rel:.3e}", grad_rel_l2=f"{grad_rel:.3e}",
+         grad_worst_split=f"{grad_in[0]:.3e}:{grad_in[1]}",
+         grad_worst_replicated=f"{grad_out[0]:.3e}:{grad_out[1]}",
+         param_rel_l2=f"{param_rel:.3e}",
+         param_worst_split=f"{param_in[0]:.3e}:{param_in[1]}",
+         param_worst_replicated=f"{param_out[0]:.3e}:{param_out[1]}",
+         bn_stats_rel_err=f"{stats_rel:.3e}",
+         bn_stats_worst=stats_worst.replace("backbone.", ""),
+         equal_across_data_ranks=same,
+         heads=compact({k: sorted(v) for k, v in heads.seen.items()}),
+         launches=compact(launches[0]),
+         all_reduces_fwd_recompute_bwd=compact(counts))
+    line(f"ddp rank {rank}", part="e", micro_step_ms_f32_no_sync_sync=compact(
+        ms[:DDP_MICRO_STEPS]), micro_step_ms_bf16_no_sync=ms[-1],
+         bf16_loss=f"{losses[-1]:.6f}", peak_mem_gib=f"{peak:.3f}",
+         base_gib=f"{base:.3f}",
+         data_all_reduce_gb=f"{numel * 4 / 1e9:.3f}",
+         data_all_reduce_ms=compact(all_reduce_ms) if all_reduce_ms
+         else "none: a data group of one rank")
+    _agree(torch, finite and launches_ok and heads.seen == want_heads
+           and same and loss_rel <= DDP_LOSS_RTOL
+           and stats_rel <= DDP_STATS_RTOL
+           and max(grad_rel, param_rel, grad_in[0], param_in[0])
+           <= TRAIN_GRAD_REL_F32,
+           f"tp train: rank {rank}: loss {loss_rel:.3e}, gradients "
+           f"{grad_rel:.3e} (split modules' worst {grad_in}), parameters "
+           f"{param_rel:.3e} ({param_in}), statistics {stats_rel:.3e}, "
+           f"equal across data ranks {same}, launches "
+           f"{launches}, heads {heads.seen}, losses {losses}")
+    return dict(tp_train_launches=launches[0], tp_train_ms=ms,
+                tp_train_peak_gib=round(peak, 3),
+                tp_train_all_reduces=counts[0],
+                tp_train_all_reduce_gb=round(numel * 4 / 1e9, 3),
+                tp_train_all_reduce_ms=all_reduce_ms)
+
+
+def ddp_rank_main(work, backend, parts=DDP_PARTS):
     """One rank of phase 11 (run by phase_ddp with torchrun's
-    environment): parts (a) to (d), then its results to
+    environment): `parts` of (a) to (e), then its results to
     <work>/rank<r>.json."""
     import torch
 
@@ -2098,12 +2350,20 @@ def ddp_rank_main(work, backend):
          shares_card_0=backend == "gloo")
     kernels.library()
     try:
-        out = ddp_rank_step(torch, kernels, rank, world, work)
-        out.update(ddp_rank_runner(torch, kernels, rank, world, work,
-                                   device))
-        out["peak_gib"] = max(out["peak_gib"], out.pop("runner_peak_gib"))
-        out.update(ddp_rank_zero(torch, kernels, rank, world, work))
-        out.update(ddp_rank_tp(torch, kernels, rank, world))
+        out = {}
+        if "a" in parts:
+            out.update(ddp_rank_step(torch, kernels, rank, world, work))
+        if "b" in parts:
+            out.update(ddp_rank_runner(torch, kernels, rank, world, work,
+                                       device))
+            out["peak_gib"] = max(out.get("peak_gib", 0),
+                                  out.pop("runner_peak_gib"))
+        if "c" in parts:
+            out.update(ddp_rank_zero(torch, kernels, rank, world, work))
+        if "d" in parts:
+            out.update(ddp_rank_tp(torch, kernels, rank, world))
+        if "e" in parts:
+            out.update(ddp_rank_tp_train(torch, kernels, rank, world, work))
         (work / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         close_distributed()
@@ -3555,6 +3815,7 @@ def phase_tools(torch, kernels, smi, train_run):
 def main(phases=None):
     """Every phase; with `phases` == ["ddp"], phases 1, 2 and 11 alone
     (the four-card run: phase 11 is what there is to see across cards);
+    with ["tp"], phases 1, 2 and phase 11's part (e) alone;
     with ["files"], phases 1, 2 and 12; with ["m2f"], phases 1, 2 and
     13; with ["rgb"], phases 1, 2 and 14; with ["tools"], 1, 2 and 15."""
     import torch
@@ -3562,7 +3823,8 @@ def main(phases=None):
     kind, smi = phase_device(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import kernel_checks as kc
-    if phases in (["ddp"], ["files"], ["m2f"], ["rgb"], ["tools"]):
+    if phases in (["ddp"], ["tp"], ["files"], ["m2f"], ["rgb"],
+                  ["tools"]):
         from multimodal_sam_adapter_torch.ops import kernels
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3574,6 +3836,8 @@ def main(phases=None):
             phase_rgb(torch, kernels, smi, kc)
         elif phases == ["tools"]:
             phase_tools(torch, kernels, smi, ToolsTrain(smi))
+        elif phases == ["tp"]:
+            phase_ddp(torch, kernels, smi, parts="e")
         else:
             (phase_ddp if phases == ["ddp"] else phase_files)(torch, kernels,
                                                               smi)
@@ -3662,6 +3926,8 @@ def main(phases=None):
                         ddp_launches=ddp_counts["ddp"][row["name"]],
                         zero_launches=ddp_counts["zero"][row["name"]],
                         tp_launches=ddp_counts["tp"][row["name"]],
+                        tp_train_launches=ddp_counts["tp_train"][
+                            row["name"]],
                         files_launches=files_counts[row["name"]],
                         m2f_launches=m2f_counts[row["name"]],
                         m2f_train_launches=m2f_step_counts[row["name"]],
@@ -3684,15 +3950,15 @@ def main(phases=None):
 if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ddp-rank"]:
-            ddp_rank_main(*sys.argv[2:4])
+            ddp_rank_main(*sys.argv[2:5])
         elif sys.argv[1:2] == ["--tools-train"]:
             tools_train_main(*sys.argv[2:4])
         elif sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (
-                ["ddp"], ["files"], ["m2f"], ["rgb"], ["tools"]):
+                ["ddp"], ["tp"], ["files"], ["m2f"], ["rgb"], ["tools"]):
             main(sys.argv[2:])
         elif sys.argv[1:]:
             raise SystemExit(
-                f"usage: {sys.argv[0]} [--phase ddp|files|m2f|rgb|tools]")
+                f"usage: {sys.argv[0]} [--phase ddp|tp|files|m2f|rgb|tools]")
         else:
             main()
     except PhaseError as e:

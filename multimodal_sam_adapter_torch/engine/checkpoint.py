@@ -1,12 +1,13 @@
 """Checkpoints of the port: the counterpart of
 multimodal_sam_adapter_tpu/engine/checkpoint.py, in torch files.
 
-- `save_checkpoint` writes `<ckpt_dir>/step_<N>.pth` (or `<tag>.pth`, e.g.
-  `best.pth`) in the reference's mmcv form, {"meta", "state_dict",
-  "optimizer"}, keeping the newest `max_keep` step files; `meta` holds
-  plain types only (the train entry's config, CLASSES, PALETTE, seed, ...
-  plus epoch, iter and step), so that `torch.load(weights_only=True)`
-  reads the whole file;
+- `save_checkpoint` (the state of a model and an optimizer) and
+  `write_checkpoint` (given states) write `<ckpt_dir>/step_<N>.pth` (or
+  `<tag>.pth`, e.g. `best.pth`) in the reference's mmcv form, {"meta",
+  "state_dict", "optimizer"}, keeping the newest `max_keep` step files;
+  `meta` holds plain types only (the train entry's config, CLASSES,
+  PALETTE, seed, ... plus epoch, iter and step), so that
+  `torch.load(weights_only=True)` reads the whole file;
 - `restore_checkpoint` reads one back, `latest_checkpoint` finds the
   newest step file;
 - `load_state_dict_file` reads the model's state_dict from any of the
@@ -123,17 +124,26 @@ def _step_of(path: Path) -> Optional[int]:
 def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, optimizer,
                     step: int, meta: Optional[Dict] = None,
                     max_keep: int = 1, tag: Optional[str] = None) -> str:
-    """Write {"meta": meta + {"step": step}, "state_dict": model's,
-    "optimizer": optimizer's} to `<ckpt_dir>/step_<step>.pth` (or
+    """`write_checkpoint` of the model's and the optimizer's state."""
+    return write_checkpoint(ckpt_dir, model.state_dict(),
+                            optimizer.state_dict(), step, meta, max_keep, tag)
+
+
+def write_checkpoint(ckpt_dir: str, state_dict: Dict[str, torch.Tensor],
+                     optimizer_state: Dict, step: int,
+                     meta: Optional[Dict] = None, max_keep: int = 1,
+                     tag: Optional[str] = None) -> str:
+    """Write {"meta": meta + {"step": step}, "state_dict": `state_dict`,
+    "optimizer": `optimizer_state`} to `<ckpt_dir>/step_<step>.pth` (or
     `<tag>.pth`), through a temporary file, then drop all but the newest
     `max_keep` step files (max_keep <= 0 keeps all; a tagged save prunes
-    nothing). Returns the path."""
+    nothing). A tensor-parallel run writes its gathered, unsharded state
+    (parallel/tp.py:gather_train_state). Returns the path."""
     d = Path(ckpt_dir)
     d.mkdir(parents=True, exist_ok=True)
     path = d / f"{tag or f'step_{step}'}.pth"
     payload = {"meta": dict(meta or {}, step=int(step)),
-               "state_dict": model.state_dict(),
-               "optimizer": optimizer.state_dict()}
+               "state_dict": state_dict, "optimizer": optimizer_state}
     tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)

@@ -25,7 +25,12 @@ reference's own LayerDecayOptimizerConstructor reads them.
   fusion neck's fused project_in weights hold JAX's gate and value
   kernels as two halves of the output axis (the modules say which, by a
   `fused_halves()` method): each half is factored on its own, as JAX
-  factors the two kernels.
+  factors the two kernels. Not on a tensor-parallel model (a ValueError):
+  its means would run over one rank's share of a split axis.
+- On a tensor-parallel model (parallel/tp.py) the optimizer holds each
+  rank's shares of the split tensors under their full names, so the
+  layer-decay ids and weight-decay masks are the unsharded ones, and
+  Adam's elementwise update is the unsharded update's share.
 - `state_dict` carries what MultiSteps' state carries in the JAX package:
   the micro-batch count, the update count, and, partway through an
   accumulation, the gradients summed so far; `load_state_dict` restores
@@ -34,7 +39,7 @@ reference's own LayerDecayOptimizerConstructor reads them.
   process's alone: under data parallelism, where each rank's `.grad`
   holds its own partial sum partway through an accumulation, the runner
   averages them over the ranks before it takes the state
-  (engine/runner.py:average_partial_grads).
+  (parallel/ddp.py:average_partial_grads).
 - `ReduceOnPlateau`: a factor for the schedule, driven by a metric.
 """
 from __future__ import annotations
@@ -232,6 +237,14 @@ class LayerDecayAdamW(torch.optim.Optimizer):
                  factored_second_moment: bool = False):
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps {grad_accum_steps} < 1")
+        if factored_second_moment and any(
+                getattr(p, "tp_split", None) is not None
+                for g in param_groups for p in g["params"]):
+            raise ValueError(
+                "factored_second_moment takes row and column means over "
+                "axes that tensor parallelism splits (parallel/tp.py): it "
+                "is not ported to a sharded model; use Adam's second "
+                "moment")
         super().__init__(param_groups, dict(lr_scale=1.0, weight_decay=0.0))
         self.schedule = schedule
         self.betas = tuple(betas)

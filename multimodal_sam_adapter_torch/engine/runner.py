@@ -28,7 +28,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..parallel.ddp import all_reduce_sum, barrier, is_main, rank_world
+from ..parallel.ddp import (all_reduce_sum, average_partial_grads, barrier,
+                            is_main, rank_world)
 from ..utils.profiling import annotate
 from .checkpoint import (latest_checkpoint, load_state_dict_file,
                          restore_checkpoint, save_checkpoint)
@@ -131,25 +132,6 @@ class TrainLogger:
             self.jsonl.close()
         if self.tb:
             self.tb.close()
-
-
-def average_partial_grads(optimizer) -> None:
-    """Partway through an accumulation on data-parallel ranks, replace
-    each rank's summed gradients (DDP averages them only at the
-    accumulation's last micro-step) by their mean over the ranks: a
-    collective, which every rank calls before the optimizer's state is
-    saved. The update at the accumulation's end averages them to the same
-    value (the mean is linear), so the run that saved and the run that
-    resumes go on from the same gradients. A no-op on one process and at
-    an accumulation's boundary."""
-    world = rank_world()[1]
-    if world == 1 or optimizer.mini_step == 0:
-        return
-    with torch.no_grad():
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is not None:
-                    p.grad.copy_(all_reduce_sum(p.grad) / world)
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:

@@ -19,6 +19,13 @@ gradients summed in `.grad` are all-reduced (averaged) once an update,
 and the dropout masks are drawn for this rank's rows of the global batch.
 N ranks of B samples then take the step of one process on the N x B
 samples in rank order.
+
+Under tensor parallelism (`mesh`, parallel/tp.py: the segmentor sharded
+by `shard_segmentor_`, the optimizer built after it on the shards, the
+wrapper's DistributedDataParallel over `mesh.data_group`) the data ranks
+take the place of the ranks above: each model rank of a data row takes
+the row's samples and draws its dropout masks, and the step is again the
+unsharded one on the global batch (the model ranks hold its shares).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from torch import nn
 from ..models.segmentor import EncoderDecoder, build_segmentor
 from ..nn.layers import fold_in, set_dropout_key
 from ..parallel.ddp import rank_world
+from ..parallel.tp import Mesh, shard_segmentor_
 from .optim import LayerDecayAdamW, make_optimizer
 
 
@@ -50,7 +58,8 @@ def make_train_step(model: nn.Module, optimizer: LayerDecayAdamW,
                     ignore_index: int = 255, ohem_thresh: float = 0.7,
                     ohem_min_kept: int = 100_000,
                     ohem_per_sample: bool = True,
-                    compute_dtype: Optional[torch.dtype] = None
+                    compute_dtype: Optional[torch.dtype] = None,
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Dict[str, object]]:
     """The step: train_step(state, batch) -> {'loss', 'updated'}.
@@ -62,11 +71,20 @@ def make_train_step(model: nn.Module, optimizer: LayerDecayAdamW,
     holds the same B). 'loss' is this rank's. ohem_per_sample=True is the
     reference's per-rank OHEM threshold at samples_per_gpu=1 (PARITY.md):
     a mean of per-sample means, which the ranks' average keeps.
-    compute_dtype: None (float32) or the autocast dtype."""
+    compute_dtype: None (float32) or the autocast dtype.
+    mesh: a tensor-parallel mesh: the batch is this rank's data row's,
+    rows data_rank x B ...; 'loss' is this rank's, the mean over
+    `mesh.data_group` that of the global batch."""
     segmentor = getattr(model, "module", model)
     device = next(segmentor.parameters()).device
     ddp = isinstance(model, nn.parallel.DistributedDataParallel)
-    shard = rank_world()
+    shard = rank_world() if mesh is None else (mesh.data_rank, mesh.data)
+    own = {id(p) for p in segmentor.parameters()}
+    if any(id(p) not in own for g in optimizer.param_groups
+           for p in g["params"]):
+        raise ValueError("the optimizer holds tensors that are not the "
+                         "model's parameters (under tensor parallelism, "
+                         "build it after shard_segmentor_)")
 
     def train_step(state: TrainState, batch) -> Dict[str, object]:
         segmentor.train()
@@ -93,16 +111,21 @@ def make_train_step(model: nn.Module, optimizer: LayerDecayAdamW,
 def init_train_state(model_cfg: Dict, device="cuda", *, seed: int = 0,
                      state_dict: Optional[Dict[str, torch.Tensor]] = None,
                      optimizer_kwargs: Optional[Dict] = None,
-                     init: str = "jax") -> TrainState:
+                     init: str = "jax",
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """A model from a registry `model` config on `device` (the card unless
     the caller passes the CPU), its weights from `state_dict` or drawn from
     a generator seeded with `seed` by `init` ('jax': as the JAX package
     initialises them, models/init.py; 'random': `random_init_`), in train
-    mode, with its optimizer (`make_optimizer(**optimizer_kwargs)`)."""
+    mode, sharded over `mesh` when one is given (every rank draws the same
+    whole weights, then keeps its shares), with its optimizer
+    (`make_optimizer(**optimizer_kwargs)`, on the shards)."""
     generator = None
     if state_dict is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     model = build_segmentor(model_cfg, device, state_dict=state_dict,
                             generator=generator, init=init).train()
+    if mesh is not None:
+        shard_segmentor_(model, mesh)
     optimizer = make_optimizer(model, **(optimizer_kwargs or {}))
     return TrainState(model, optimizer, 0, seed)

@@ -21,11 +21,13 @@ from outside (`set_dropout_key`, the counterpart of the JAX package's
 (`checkpoint`) draws the same masks, and each sample's mask from its row
 in the global batch, so that N ranks draw the masks of one process on the
 global batch. Train-mode BatchNorm normalises with the statistics of the
-global batch (merged over the ranks, parallel/ddp.py), as the JAX
-package's BatchNorm under a batch-sharded mesh. GELU is the exact erf form.
+global batch (merged over the ranks, parallel/ddp.py, or over the data
+group of a tensor-parallel mesh, parallel/tp.py), as the JAX package's
+BatchNorm under a batch-sharded mesh. GELU is the exact erf form.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -158,7 +160,9 @@ def set_dropout_key(model: nn.Module, key: Optional[int],
     """Seed every `KeyedDropout` of `model` for the next train-mode
     forward (and its recomputes): the i-th in module order draws from
     fold_in(key, i), for the rows of the global batch that rank `shard[0]`
-    of `shard[1]` holds (rank x B ... rank x B + B - 1). Every
+    of `shard[1]` holds (rank x B ... rank x B + B - 1). Under tensor
+    parallelism `shard` is (data rank, data size): the model ranks of a
+    data row hold the same samples and draw the same masks. Every
     `KeyedDraws` gets `key`. None unsets them."""
     drops = (m for m in model.modules() if isinstance(m, KeyedDropout))
     for i, m in enumerate(drops):
@@ -169,12 +173,22 @@ def set_dropout_key(model: nn.Module, key: Optional[int],
             m.seed, m.shard = key, tuple(shard)
 
 
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """Whether the caller runs inside a `checkpoint` region's recompute
+    (the backward's second run of fn), not its forward."""
+    return _RECOMPUTING.get()
+
+
 def checkpoint(fn: Callable, *args, module: nn.Module):
     """fn(*args) under torch.utils.checkpoint (non-reentrant): nothing
-    inside is saved for the backward, which runs fn again. The recompute
-    would update the running statistics of every train-mode BatchNorm of
-    `module` (the modules fn runs) a second time, so they are put back as
-    the forward left them after it."""
+    inside is saved for the backward, which runs fn again (`recomputing()`
+    is true inside that run). The recompute would update the running
+    statistics of every train-mode BatchNorm of `module` (the modules fn
+    runs) a second time, so they are put back as the forward left them
+    after it."""
     norms = [m for m in module.modules()
              if isinstance(m, nn.modules.batchnorm._BatchNorm)
              and m.track_running_stats]
@@ -182,14 +196,16 @@ def checkpoint(fn: Callable, *args, module: nn.Module):
 
     def run(*a):
         calls.append(None)
-        if len(calls) == 1 or not norms:
+        if len(calls) == 1:
             return fn(*a)
         saved = [[b.clone() for b in (m.running_mean, m.running_var,
                                       m.num_batches_tracked)]
                  for m in norms]
+        token = _RECOMPUTING.set(True)
         try:
             return fn(*a)
         finally:
+            _RECOMPUTING.reset(token)
             for m, (mean, var, n) in zip(norms, saved):
                 m.running_mean.copy_(mean)
                 m.running_var.copy_(var)
@@ -206,13 +222,13 @@ class _PlainSyncBatchNorm(torch.autograd.Function):
     the gradient (dy, dy * x_hat) the same way."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         C = x.shape[1]
         xf = x.float()
         # the pixel count rides along in float32: exact below 2^24
         stats = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)),
                            xf.new_full((1,), x.numel() // C)])
-        dist.all_reduce(stats)
+        dist.all_reduce(stats, group=group)
         n = stats[-1]
         mean = stats[:C] / n
         # flax's form: E[x^2] - E[x]^2, clamped at 0
@@ -222,6 +238,7 @@ class _PlainSyncBatchNorm(torch.autograd.Function):
                                                                       None]
              + bias.float()[:, None, None]).to(x.dtype)
         ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -233,12 +250,12 @@ class _PlainSyncBatchNorm(torch.autograd.Function):
         xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
         sums = torch.cat([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
         dweight, dbias = sums[C:].clone(), sums[:C].clone()
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         dx = (dyf - sums[:C, None, None] / n
               - xhat * (sums[C:, None, None] / n)) * (
                   invstd * weight.float())[:, None, None]
         return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(
-            weight.dtype), None
+            weight.dtype), None, None
 
 
 class _CudaSyncBatchNorm(torch.autograd.Function):
@@ -252,7 +269,7 @@ class _CudaSyncBatchNorm(torch.autograd.Function):
     batch_norm_backward_elemt."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, rank, world):
+    def forward(ctx, x, weight, bias, eps, group, rank, world):
         x = x.contiguous()
         C = x.shape[1]
         mean, invstd = torch.batch_norm_stats(x, eps)
@@ -260,7 +277,7 @@ class _CudaSyncBatchNorm(torch.autograd.Function):
         rows[rank, :C] = mean
         rows[rank, C:2 * C] = invstd
         rows[rank, -1] = x.numel() // C
-        dist.all_reduce(rows)
+        dist.all_reduce(rows, group=group)
         counts = rows[:, -1]
         # given running statistics the merge takes the counts in their
         # dtype, float32 (given none, in x's: inexact in bf16); these are
@@ -272,6 +289,7 @@ class _CudaSyncBatchNorm(torch.autograd.Function):
         y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
         ctx.save_for_backward(x, weight, mean, invstd,
                               counts.to(torch.int32))
+        ctx.group = group
         var = (invstd.pow(-2) - eps).clamp(min=0)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -283,11 +301,11 @@ class _CudaSyncBatchNorm(torch.autograd.Function):
         sum_dy, sum_dy_xmu, dweight, dbias = torch.batch_norm_backward_reduce(
             dy.contiguous(), x, mean, invstd, weight, True, True, True)
         sums = torch.cat([sum_dy, sum_dy_xmu])
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         dx = torch.batch_norm_backward_elemt(
             dy.contiguous(), x, mean, invstd, weight.to(mean.dtype),
             sums[:C], sums[C:], counts)
-        return dx, dweight, dbias, None, None, None
+        return dx, dweight, dbias, None, None, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -299,20 +317,29 @@ class BatchNorm2d(nn.BatchNorm2d):
     BatchNorm and SyncBatchNorm use the unbiased one). One process runs
     torch's fused BatchNorm (native_batch_norm) and takes the variance
     from its 1/std; ranks run `_CudaSyncBatchNorm` on cards and
-    `_PlainSyncBatchNorm` on the CPU. In eval mode torch's BatchNorm on
-    the running statistics. A subclass of nn.BatchNorm2d: the same
-    state_dict keys, and every isinstance check on norms holds."""
+    `_PlainSyncBatchNorm` on the CPU. The ranks are those of
+    `process_group`: None, every rank of the process group; on a
+    tensor-parallel mesh its data group (`set_sync_group`), since the
+    model ranks of a data row hold the same samples. In eval mode torch's
+    BatchNorm on the running statistics. A subclass of nn.BatchNorm2d:
+    the same state_dict keys, and every isinstance check on norms holds."""
+
+    process_group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        rank, world = rank_world()
+        group = self.process_group
+        if group is None:
+            rank, world = rank_world()
+        else:
+            rank, world = dist.get_rank(group), dist.get_world_size(group)
         if world > 1 and x.is_cuda:
             y, mean, var = _CudaSyncBatchNorm.apply(
-                x, self.weight, self.bias, self.eps, rank, world)
+                x, self.weight, self.bias, self.eps, group, rank, world)
         elif world > 1:
             y, mean, var = _PlainSyncBatchNorm.apply(
-                x, self.weight, self.bias, self.eps)
+                x, self.weight, self.bias, self.eps, group)
         else:
             y, mean, invstd = torch.native_batch_norm(
                 x, self.weight, self.bias, None, None, True, 0.0, self.eps)
@@ -326,6 +353,15 @@ class BatchNorm2d(nn.BatchNorm2d):
                                    self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def set_sync_group(model: nn.Module,
+                   group: Optional[dist.ProcessGroup]) -> None:
+    """Merge the train-mode statistics of every `BatchNorm2d` of `model`
+    over the ranks of `group` (None: every rank)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
 
 
 class Scale(nn.Module):

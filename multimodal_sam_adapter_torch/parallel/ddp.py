@@ -13,10 +13,15 @@ reference trains (DistributedDataParallel over NCCL with SyncBN):
   process and no group;
 - `rank_device()` is the rank's card, `cuda:LOCAL_RANK % device_count`;
 - `wrap_model` wraps the segmentor in DistributedDataParallel when there
-  is more than one rank (the gradient all-reduce);
-- `all_reduce_sum` sums an array or a tensor over the ranks (the
-  evaluator's histograms, the logged loss);
-- nn/layers.py's `BatchNorm2d` sums its statistics over the ranks.
+  is more than one rank (the gradient all-reduce), over every rank or over
+  a group of them (a tensor-parallel mesh's data group, parallel/tp.py);
+- `all_reduce_sum` sums an array or a tensor over the ranks, or a group
+  of them (the evaluator's histograms, the logged loss);
+- `average_partial_grads` averages an accumulation's partial gradients
+  over the ranks before its state is saved;
+- nn/layers.py's `BatchNorm2d` sums its statistics over the ranks;
+- `launch_ranks` runs a command as N local ranks with torchrun's
+  environment (the tensor-parallel dryrun, graft_entry.py).
 
 The backend is the caller's choice and nothing changes it: `nccl` where
 each rank has a card of its own, `gloo` for ranks on the CPU or ranks that
@@ -26,7 +31,10 @@ without a card, or for ranks that share one, raises.
 from __future__ import annotations
 
 import os
-from typing import Tuple, Union
+import socket
+import subprocess
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -101,16 +109,22 @@ def rank_device() -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def wrap_model(model: torch.nn.Module) -> torch.nn.Module:
-    """`model` in DistributedDataParallel when the group has more than one
-    rank, else `model` itself. Buffers are not broadcast: the port's
-    BatchNorm2d keeps its running statistics equal on every rank."""
-    if rank_world()[1] == 1:
+def _size(group: Optional[dist.ProcessGroup]) -> int:
+    return rank_world()[1] if group is None else dist.get_world_size(group)
+
+
+def wrap_model(model: torch.nn.Module,
+               group: Optional[dist.ProcessGroup] = None) -> torch.nn.Module:
+    """`model` in DistributedDataParallel over `group` (None: every rank)
+    when it has more than one rank, else `model` itself. Buffers are not
+    broadcast: the port's BatchNorm2d keeps its running statistics equal
+    on every rank."""
+    if _size(group) == 1:
         return model
     device = next(model.parameters()).device
     return torch.nn.parallel.DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
-        broadcast_buffers=False)
+        broadcast_buffers=False, process_group=group)
 
 
 def _wire_device() -> torch.device:
@@ -119,22 +133,93 @@ def _wire_device() -> torch.device:
     return torch.device("cpu")
 
 
-def all_reduce_sum(x: Union[np.ndarray, torch.Tensor]
+def all_reduce_sum(x: Union[np.ndarray, torch.Tensor],
+                   group: Optional[dist.ProcessGroup] = None
                    ) -> Union[np.ndarray, torch.Tensor]:
-    """The sum of `x` over the ranks (a copy; `x` itself is left as it
-    is), as JAX's `gather_results` followed by `.sum(0)`. A numpy array
-    goes over the wire in its own dtype (float64 for the evaluator's
-    histograms: NCCL and gloo both reduce it) on the backend's device and
-    comes back as numpy; a tensor stays where it is. Without a process
-    group: a copy."""
+    """The sum of `x` over the ranks of `group` (None: every rank; a copy,
+    `x` itself is left as it is), as JAX's `gather_results` followed by
+    `.sum(0)`. A numpy array goes over the wire in its own dtype (float64
+    for the evaluator's histograms: NCCL and gloo both reduce it) on the
+    backend's device and comes back as numpy; a tensor stays where it is.
+    Without a process group: a copy."""
     if isinstance(x, np.ndarray):
         if not _initialized():
             return x.copy()
         t = torch.from_numpy(np.ascontiguousarray(x)).to(_wire_device(),
                                                          copy=True)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t.cpu().numpy()
     t = x.detach().clone()
     if _initialized():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
+
+
+def average_partial_grads(optimizer,
+                          group: Optional[dist.ProcessGroup] = None) -> None:
+    """Partway through an accumulation on data-parallel ranks, replace
+    each rank's summed gradients (DDP averages them only at the
+    accumulation's last micro-step) by their mean over the ranks of
+    `group` (None: every rank; a tensor-parallel mesh's data group, whose
+    ranks hold the same shares): a collective, which every rank calls
+    before the optimizer's state is saved. The update at the
+    accumulation's end averages them to the same value (the mean is
+    linear), so the run that saved and the run that resumes go on from
+    the same gradients. A no-op on one rank and at an accumulation's
+    boundary."""
+    world = _size(group)
+    if world == 1 or optimizer.mini_step == 0:
+        return
+    with torch.no_grad():
+        for g in optimizer.param_groups:
+            for p in g["params"]:
+                if p.grad is not None:
+                    p.grad.copy_(all_reduce_sum(p.grad, group) / world)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on (now)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int) -> Dict[str, str]:
+    """torchrun's environment for local rank `rank` of `world`."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                MASTER_PORT=str(port))
+
+
+def launch_ranks(argv: Sequence[str], world: int, timeout: float,
+                 env: Optional[Dict[str, str]] = None,
+                 cwd: Optional[str] = None) -> List[Tuple[int, str]]:
+    """Run `argv` as `world` processes on this host, each with torchrun's
+    environment (a free port on localhost) on top of `env` (default: this
+    process's), and wait for them. Returns each rank's (exit code,
+    output: stdout and stderr). Ranks still running after `timeout`
+    seconds are killed (exit code None then); no process outlives the
+    call."""
+    port = free_port()
+    procs = [subprocess.Popen(list(argv), cwd=cwd,
+                              env=dict(env or os.environ,
+                                       **rank_env(r, world, port)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    out, t0 = [], time.monotonic()
+    try:
+        for p in procs:
+            try:
+                log, _ = p.communicate(
+                    timeout=max(1.0, timeout - (time.monotonic() - t0)))
+                out.append((p.returncode, log))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out.append((None, p.communicate()[0]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out

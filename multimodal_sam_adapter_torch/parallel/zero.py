@@ -98,6 +98,11 @@ class ZeroAdamW(LayerDecayAdamW):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        if any(getattr(p, "tp_split", None) is not None
+               for p in self._params()):
+            raise ValueError("ZeRO over every rank would mix the model "
+                             "ranks' shares of a tensor-parallel model "
+                             "(parallel/tp.py): not ported")
         self.rank, self.world = rank_world()
         params = self._params()
         self.owner = owners([p.numel() for p in params], self.world)

@@ -3,12 +3,13 @@
 `spawn(task, out_dir, ...)` starts `world` processes of this file over a
 gloo process group on localhost, each with torchrun's environment (RANK,
 WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT on a
-free port) and one torch thread, waits for them within a time limit of
-its own (then kills them and fails), and returns each rank's results, the
-dict the task saved to `<out_dir>/rank<r>.pt`, with its output under
-"log". The tasks build their inputs from seeds, and the tests build the
-single-process references from the same functions, so every rank holds
-rows rank x B ... of the reference's global batch.
+free port; the port's parallel/ddp.py:launch_ranks) and one torch
+thread, waits for them within a time limit of its own (then kills them
+and fails), and returns each rank's results, the dict the task saved to
+`<out_dir>/rank<r>.pt`, with its output under "log". The tasks build
+their inputs from seeds, and the tests build the single-process
+references from the same functions, so every rank holds rows rank x B
+... of the reference's global batch.
 
 A task returns only what its test reads: a tensor that a test compares
 bit for bit with another comes back as its `digest` (dtype, shape and a
@@ -20,8 +21,6 @@ The file imports torch and the port only, never JAX.
 """
 import hashlib
 import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -30,21 +29,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT = 120
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def rank_env(rank: int, world: int, port: int) -> dict:
-    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-               LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-               MASTER_ADDR="localhost", MASTER_PORT=str(port),
-               OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
-    env.pop("XLA_FLAGS", None)
-    return env
 
 
 def run_ranks(cmd, world: int = 2, timeout: float = SPAWN_TIMEOUT,
@@ -63,29 +47,18 @@ def run_ranks(cmd, world: int = 2, timeout: float = SPAWN_TIMEOUT,
 
 
 def _run_ranks(cmd, world, timeout, cwd):
-    port = _free_port()
-    procs = [subprocess.Popen(cmd, cwd=cwd or ROOT,
-                              env=rank_env(r, world, port),
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    logs, timed_out = [], False
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            timed_out = True
-            for q in procs:
-                q.kill()
-            out, _ = p.communicate()
-        logs.append(out)
-    bad = timed_out or any(p.returncode != 0 for p in procs)
-    if bad:
+    from multimodal_sam_adapter_torch.parallel.ddp import launch_ranks
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    env.pop("XLA_FLAGS", None)
+    ranks = launch_ranks(cmd, world, timeout, env=env, cwd=cwd or ROOT)
+    codes = [rc for rc, _ in ranks]
+    if codes != [0] * world:
         raise AssertionError(
-            ("ranks timed out after %ss\n" % timeout if timed_out else "")
-            + "\n".join(f"--- rank {r} (rc {p.returncode}):\n{log[-4000:]}"
-                        for r, (p, log) in enumerate(zip(procs, logs))))
-    return logs
+            (f"ranks timed out after {timeout}s\n" if None in codes else "")
+            + "\n".join(f"--- rank {r} (rc {rc}):\n{log[-4000:]}"
+                        for r, (rc, log) in enumerate(ranks)))
+    return [log for _, log in ranks]
 
 
 def spawn(task: str, out_dir, *args, world: int = 2,
@@ -163,24 +136,32 @@ def local(batch, rank: int, world: int):
 
 
 def train_run(model_cfg, batches, accum: int, state_dict=None,
-              opt=OPT, seed: int = 1, zero: bool = False, resume=None):
+              opt=OPT, seed: int = 1, zero: bool = False, resume=None,
+              mesh=None, wrap=None, after_step=None):
     """`make_train_step` on `batches` from the seeded random init (or
     `state_dict`), the model wrapped for data parallelism when there is a
     process group, the optimizer sharded by ZeRO with `zero`, the model,
     optimizer and step loaded from `resume` (a `saved` entry) first.
+    With a tensor-parallel `mesh` (parallel/tp.py) the model is sharded
+    over it, wrapped over its data group (or by `wrap`), the gradients and
+    parameters returned are the gathered (unsharded) ones, and `counts`
+    holds each micro-step's (forward, recompute, backward) all-reduces;
+    `after_step(i, state)` runs after micro-step i.
     Returns the losses, the gradients the optimizer saw at each update,
     the parameters after each update, the BatchNorm statistics after the
     last micro-step and, after each update, `saved`: the model's and the
     optimizer's state (a ZeRO optimizer's consolidated on rank 0, None on
-    the others) and the step."""
+    the others; none under a mesh) and the step; with a mesh, `state`."""
     from multimodal_sam_adapter_torch.engine.train import (init_train_state,
                                                            make_train_step)
     from multimodal_sam_adapter_torch.parallel import wrap_model
+    from multimodal_sam_adapter_torch.parallel.tp import (gather_over_model,
+                                                          sharded_plan)
     from multimodal_sam_adapter_torch.parallel.zero import shard_optimizer
 
     state = init_train_state(model_cfg, "cpu", seed=0, state_dict=state_dict,
                              init="random", optimizer_kwargs=dict(
-                                 opt, grad_accum_steps=accum))
+                                 opt, grad_accum_steps=accum), mesh=mesh)
     state.seed = seed
     if zero:
         state.optimizer = shard_optimizer(state.optimizer)
@@ -189,23 +170,42 @@ def train_run(model_cfg, batches, accum: int, state_dict=None,
         state.optimizer.load_state_dict(resume["optimizer"])
         state.step = resume["step"]
     named = dict(state.model.named_parameters())
-    grads, params, losses, saved = [], [], [], []
+    plan = sharded_plan(state.model)
+
+    def whole(n, t):
+        t = t.detach().clone()
+        return gather_over_model(t, plan[n], mesh) if n in plan else t
+
+    grads, params, losses, saved, counts = [], [], [], [], []
 
     def before_step(optimizer, args, kwargs):
         if optimizer.mini_step + 1 == accum:      # this call updates
-            grads.append({n: p.grad.clone() for n, p in named.items()})
+            grads.append({n: whole(n, p.grad) for n, p in named.items()})
 
     state.optimizer.register_step_pre_hook(before_step)
-    step = make_train_step(wrap_model(state.model), state.optimizer)
-    for b in batches:
+    if wrap is None:
+        wrap = lambda m: wrap_model(  # noqa: E731
+            m, None if mesh is None else mesh.data_group)
+    step = make_train_step(wrap(state.model), state.optimizer, mesh=mesh)
+    for i, b in enumerate(batches):
+        if mesh is not None:
+            mesh.reset_counts()
         out = step(state, b)
         losses.append(out["loss"].item())
+        if mesh is not None:
+            counts.append((mesh.all_reduces, mesh.recompute_all_reduces,
+                           mesh.backward_all_reduces))
         if out["updated"]:
-            params.append({n: p.detach().clone() for n, p in named.items()})
-            saved.append(snapshot(state))
+            params.append({n: whole(n, p) for n, p in named.items()})
+            if mesh is None:
+                saved.append(snapshot(state))
+        if after_step is not None:
+            after_step(i, state)
     stats = {n: b.clone() for n, b in state.model.named_buffers()}
     out = dict(losses=losses, grads=grads, params=params, stats=stats,
                saved=saved)
+    if mesh is not None:
+        out.update(counts=counts, state=state)
     if zero:
         opt = state.optimizer
         out["owner"] = opt.owner
@@ -476,14 +476,17 @@ TINY_ENCODER = dict(patch_size=16, embed_dim=32, depth=3, num_heads=2,
                     pretrained_size=96)
 
 
-def task_tp(rank, world, state_dict_path, x_path, kind="segmentor"):
+def task_tp(rank, world, state_dict_path, x_path, kind="segmentor",
+            m2f_state_dict_path=None, m2f_x_path=None):
     """The tensor-parallel eval forward (tests/test_torch_parallel_tp.py)
     of deliver_tiny from the JAX parity weights, on a (data 2, model 2)
     and a (data 1, model 4) mesh: this rank's rows of the batch, the
     logits, the all-reduces, the head counts the kernels were called
-    with. kind "encoder": TINY_ENCODER's forward on a (data 1, model
-    world) mesh (tests/test_torch_sam_encoder.py): the tokens, the
-    all-reduces, the heads."""
+    with; given the m2f paths, also deliver_tiny_m2f's forward on the
+    (data 2, model 2) mesh (`m2f`), with its pixel decoder's heads. kind
+    "encoder": TINY_ENCODER's forward on a (data 1, model world) mesh
+    (tests/test_torch_sam_encoder.py): the tokens, the all-reduces, the
+    heads."""
     from multimodal_sam_adapter_torch.models.sam_vit import ImageEncoderViT
     from multimodal_sam_adapter_torch.models.segmentor import build_segmentor
     from multimodal_sam_adapter_torch.parallel.tp import (make_mesh,
@@ -515,11 +518,156 @@ def task_tp(rank, world, state_dict_path, x_path, kind="segmentor"):
             heads=dict(vit=bb.blocks[0].attn.num_heads,
                        injector=bb.interactions[0].injector.attn.n_heads,
                        extractor=bb.interactions[0].extractor.attn.n_heads))
+    if m2f_state_dict_path is not None:
+        from multimodal_sam_adapter_torch.configs.registry import get_config
+
+        mesh = make_mesh(2, 2)
+        net = shard_segmentor_(build_segmentor(
+            get_config("deliver_tiny_m2f")["model"], "cpu",
+            state_dict=torch.load(m2f_state_dict_path, weights_only=True)),
+            mesh)
+        x = torch.load(m2f_x_path, weights_only=True)
+        with torch.no_grad():
+            logits = net(local({"x": x}, mesh.data_rank, 2)["x"])
+        layer = net.decode_head.pixel_decoder.encoder.layers[0]
+        out["m2f"] = dict(logits=logits, all_reduces=mesh.all_reduces,
+                          data_rank=mesh.data_rank,
+                          heads=layer.attentions[0].n_heads)
     return out
 
 
+def rel_l2(got, want):
+    """name -> |got - want| / |want| (L2) of each tensor of `want`."""
+    return {n: ((got[n] - t).norm() / t.norm()).item()
+            for n, t in want.items()}
+
+
+def task_tp_train(rank, world, work, state_dict_path, batch_path,
+                  ref_path):
+    """The train step under tensor parallelism on a (data 2, model 2)
+    mesh (tests/test_torch_train_parity.py), one sample a data rank:
+    (1) `jax`: grad_accum 1, dropout 0, from the JAX parity weights on the
+    JAX batch; rank 0 returns the gathered gradients and parameters whole,
+    with the shard shapes and the head counts. (2) `accum`: deliver_tiny
+    with drop path on, grad_accum 2, two updates, held to the one-process
+    run of `ref_path` (each tensor's relative L2 after each update), with
+    the all-reduce counts and digests of the gathered parameters; after
+    its third micro-step the state is gathered (`gather_train_state`),
+    loaded into a fresh sharded model and optimizer (`shard_train_state`)
+    and taken through the fourth micro-step; after the run the gathered
+    state on rank 0 beside the unsharded optimizer's given the gathered
+    gradients, and written as a checkpoint. (3) the same first update
+    with the backward's model-group sum taken out, and (4) with DDP over
+    every rank: relative L2 only."""
+    import torch.distributed as dist
+
+    import multimodal_sam_adapter_torch.parallel.tp as tp
+    from multimodal_sam_adapter_torch.engine.checkpoint import (
+        write_checkpoint)
+    from multimodal_sam_adapter_torch.engine.train import (init_train_state,
+                                                           make_train_step)
+    from multimodal_sam_adapter_torch.parallel import wrap_model
+
+    mesh = tp.make_mesh(2, world // 2)
+    d = mesh.data_rank
+    out = {"data_rank": d, "model_rank": mesh.model_rank}
+    sd = torch.load(state_dict_path, weights_only=True)
+    batch = torch.load(batch_path, weights_only=True)
+    run = train_run(tiny_model(dropout=False), [local(batch, d, 2)], 1,
+                    state_dict=sd, mesh=mesh)
+    bb = run["state"].model.backbone
+    out["jax"] = dict(
+        losses=run["losses"], counts=run["counts"],
+        shapes={n: tuple(p.shape) for n, p in
+                run["state"].model.named_parameters()},
+        plan=tp.sharded_plan(run["state"].model),
+        heads=dict(vit=bb.blocks[0].attn.num_heads,
+                   injector=bb.interactions[0].injector.attn.n_heads,
+                   extractor=bb.interactions[0].extractor.attn.n_heads),
+        digest=digest(keep(run, "grads", "params")))
+    if rank == 0:
+        out["jax"].update(keep(run, "grads", "params", "stats"))
+    del run, sd
+
+    ref = torch.load(ref_path, weights_only=True)
+    batches = [local(b, d, 2) for b in global_batches(4)]
+    model = tiny_model()
+    mid = {}
+
+    def save_mid(i, state):
+        if i == 2:      # partway through the second accumulation
+            mid["state"] = tp.gather_train_state(state.model,
+                                                 state.optimizer, mesh)
+            mid["model"] = digest(state.model.state_dict())
+            mid["optimizer"] = digest(state.optimizer.state_dict())
+
+    run = train_run(model, batches, 2, mesh=mesh, after_step=save_mid)
+    state = run.pop("state")
+    fresh = init_train_state(model, "cpu", seed=5, init="random",
+                             optimizer_kwargs=dict(OPT, grad_accum_steps=2),
+                             mesh=mesh)
+    tp.shard_train_state(fresh.model, fresh.optimizer, *mid["state"], mesh)
+    restored = (digest(fresh.model.state_dict()),
+                digest(fresh.optimizer.state_dict()))
+    fresh.seed, fresh.step = 1, 3
+    make_train_step(wrap_model(fresh.model, mesh.data_group),
+                    fresh.optimizer, mesh=mesh)(fresh, batches[3])
+    resumed = {n: whole_param(t, mesh)
+               for n, t in fresh.model.named_parameters()}
+    full_sd, full_osd = tp.gather_train_state(state.model, state.optimizer,
+                                              mesh)
+    out["accum"] = dict(
+        losses=run["losses"], counts=run["counts"],
+        rel=[rel_l2(got, want) for got, want in zip(run["params"], ref)],
+        params=digest(run["params"]),
+        restored_equal=restored == (mid["model"], mid["optimizer"]),
+        resumed_equal=digest(resumed) == digest(run["params"][-1]),
+        state=digest(full_osd))
+    if rank == 0:
+        # the unsharded optimizer from the same init, given the gathered
+        # gradients of each update
+        plain = init_train_state(model, "cpu", seed=0, init="random",
+                                 optimizer_kwargs=dict(OPT,
+                                                       grad_accum_steps=2))
+        for grads in run["grads"]:
+            for n, p in plain.model.named_parameters():
+                p.grad = grads[n].clone()
+            plain.optimizer.mini_step = 1
+            plain.optimizer.step()
+        out["accum"].update(
+            plain_state=digest(plain.optimizer.state_dict()),
+            plain_params=digest(dict(plain.model.named_parameters())),
+            gathered_params=digest({n: full_sd[n] for n, _ in
+                                    plain.model.named_parameters()}),
+            ckpt=write_checkpoint(work, full_sd, full_osd, state.step,
+                                  {"mesh": [mesh.data, mesh.model]}))
+    del run, state, fresh, mid
+    dist.barrier()
+
+    real = tp._sum_gradient
+    tp._sum_gradient = lambda g, mesh: g
+    try:
+        run = train_run(model, batches[:2], 2, mesh=mesh)
+    finally:
+        tp._sum_gradient = real
+    out["no_backward_sum"] = rel_l2(run["params"][0], ref[0])
+    run = train_run(model, batches[:2], 2, mesh=mesh, wrap=wrap_model)
+    out["ddp_over_world"] = rel_l2(run["params"][0], ref[0])
+    return out
+
+
+def whole_param(t, mesh):
+    """A parameter of a sharded model, gathered when it is split."""
+    from multimodal_sam_adapter_torch.parallel.tp import gather_over_model
+
+    split = getattr(t, "tp_split", None)
+    t = t.detach().clone()
+    return t if split is None else gather_over_model(t, split, mesh)
+
+
 TASKS = {"step": task_step, "jax": task_jax, "eval": task_eval,
-         "runner": task_runner, "zero": task_zero, "tp": task_tp}
+         "runner": task_runner, "zero": task_zero, "tp": task_tp,
+         "tp_train": task_tp_train}
 
 
 def main(argv):

@@ -203,3 +203,20 @@ def test_init_distributed_refuses_nccl_without_a_card_or_on_a_shared_one(
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setenv("LOCAL_RANK", "5")
     assert ddp.rank_device() == torch.device("cuda", 1)
+
+
+def test_launch_ranks_sets_torchruns_environment_and_kills_at_the_limit():
+    import sys
+    import time
+
+    cmd = [sys.executable, "-c", "import os; print(*(os.environ[k] for k in "
+           "('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR')))"]
+    ranks = ddp.launch_ranks(cmd, 3, 60)
+    assert [rc for rc, _ in ranks] == [0, 0, 0]
+    assert [log.split() for _, log in ranks] == [
+        [str(r), "3", str(r), "localhost"] for r in range(3)]
+    t = time.monotonic()
+    ranks = ddp.launch_ranks([sys.executable, "-c",
+                              "import time; time.sleep(60)"], 2, 1)
+    assert [rc for rc, _ in ranks] == [None, None]
+    assert time.monotonic() - t < 30

@@ -78,6 +78,12 @@ def _jax_model():
 
 @pytest.fixture(scope="module")
 def tiny():
+    return jax_reference()
+
+
+def jax_reference():
+    """The reference checkpoint, its JAX tree, the input batch and the
+    JAX forward's logits (and the cross-attention masks' margin)."""
     sd, head_sd = reference_checkpoint()
     # the backbone's tree (with the SegFormer head it was made with), its
     # head replaced by the Mask2Former head's

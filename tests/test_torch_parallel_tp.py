@@ -17,6 +17,11 @@ the CPU, against the JAX package's forward on the same weights.
   JAX forward's rows of the batch (the parity tolerance of
   tests/test_torch_model.py; the partial sums add in another order), the
   split modules' head counts and the all-reduces a forward.
+- The Mask2Former head (deliver_tiny_m2f) in the same spawn: the rules
+  also split its pixel decoder's deformable attention (`attentions.<i>.`
+  names), whose forward on the (data 2, model 2) mesh holds the JAX
+  forward's logits at the same tolerance (the reference checkpoint of
+  tests/test_torch_mask2former_model.py).
 - Without a process group only the 1 x 1 mesh exists, and it changes
   nothing.
 """
@@ -40,6 +45,7 @@ from multimodal_sam_adapter_tpu.models.segmentor import (
     EncoderDecoder as JaxEncoderDecoder)
 from tests import _torch_ddp_worker as w
 from tests._torch_parity import randomize
+from tests.test_torch_mask2former import MASK_MARGIN
 
 CFG = w.tiny_model(dropout=False)
 BACKBONE = CFG["backbone"]
@@ -65,12 +71,27 @@ def jax_forward():
 
 
 @pytest.fixture(scope="module")
-def ranks(jax_forward, tmp_path_factory):
+def m2f_forward():
+    """deliver_tiny_m2f's JAX forward on the reference checkpoint, and the
+    port's state dict of the same weights."""
+    from tests.test_torch_mask2former_model import jax_reference
+
+    ref = jax_reference()
+    idx = get_config("deliver_tiny_m2f")["model"]["backbone"][
+        "interaction_indexes"]
+    return state_dict_from_jax(ref["tree"], idx), ref
+
+
+@pytest.fixture(scope="module")
+def ranks(jax_forward, m2f_forward, tmp_path_factory):
     sd, x, _ = jax_forward
     d = tmp_path_factory.mktemp("tp")
     torch.save(sd, d / "sd.pt")
     torch.save(torch.from_numpy(x), d / "x.pt")
-    return w.spawn("tp", d, d / "sd.pt", d / "x.pt", world=4)
+    torch.save(m2f_forward[0], d / "m2f_sd.pt")
+    torch.save(torch.from_numpy(m2f_forward[1]["x"]), d / "m2f_x.pt")
+    return w.spawn("tp", d, d / "sd.pt", d / "x.pt", "segmentor",
+                   d / "m2f_sd.pt", d / "m2f_x.pt", world=4)
 
 
 @pytest.fixture(scope="module")
@@ -153,6 +174,60 @@ def test_tp_splits_heads_and_sums_partial_outputs(ranks):
         for r in ranks:
             assert r[mesh]["heads"] == heads
             assert r[mesh]["all_reduces"] == reduces
+
+
+def test_m2f_rules_split_the_pixel_decoder():
+    cfg = get_config("deliver_tiny_m2f")["model"]
+    model = build_segmentor(cfg, "cpu",
+                            generator=torch.Generator().manual_seed(0))
+    enc = "decode_head.pixel_decoder.encoder.layers.0.attentions.0."
+    plan = tp_plan(model, 2)
+    for name in ("value_proj", "sampling_offsets", "attention_weights"):
+        assert plan[enc + f"{name}.weight"] == COLUMN
+        assert plan[enc + f"{name}.bias"] == COLUMN
+    assert plan[enc + "output_proj.weight"] == ROW
+    assert enc + "output_proj.bias" not in plan
+    # the masked-attention decoder and the FFNs stay replicated
+    assert all(k.startswith("backbone.") or k.startswith(
+        "decode_head.pixel_decoder.encoder.") for k in plan)
+
+
+def test_tp_m2f_forward_matches_jax(m2f_forward, ranks):
+    ref = m2f_forward[1]
+    assert ref["margin"] >= MASK_MARGIN
+    want = ref["want"]
+    for r in ranks:
+        got = r["m2f"]
+        d = got["data_rank"]
+        np.testing.assert_allclose(got["logits"].numpy(), want[d:d + 1],
+                                   **TOL)
+        # the pixel decoder's 8 heads split, one more row-parallel sum
+        assert got["heads"] == 4
+        assert got["all_reduces"] == 25
+
+
+def test_what_is_not_ported_under_tp_raises(tiny):
+    """A parameter that shard_segmentor_ split (its `tp_split` mark) makes
+    the factored second moment and ZeRO refuse; an optimizer built
+    before the sharding (on tensors the model no longer holds) makes the
+    train step refuse."""
+    from multimodal_sam_adapter_torch.engine.optim import make_optimizer
+    from multimodal_sam_adapter_torch.engine.train import make_train_step
+    from multimodal_sam_adapter_torch.parallel.zero import shard_optimizer
+
+    model = build_segmentor(CFG, "cpu",
+                            generator=torch.Generator().manual_seed(0))
+    stale = make_optimizer(model)
+    qkv = model.backbone.blocks[0].attn.qkv
+    qkv.weight = torch.nn.Parameter(qkv.weight.detach()[:48].clone())
+    qkv.weight.tp_split = Split(0, 3)
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        make_optimizer(model, factored_second_moment=True)
+    with pytest.raises(ValueError, match="tensor-parallel"):
+        shard_optimizer(make_optimizer(model))
+    with pytest.raises(ValueError, match="after shard_segmentor_"):
+        make_train_step(model, stale)
+    make_train_step(model, make_optimizer(model))
 
 
 def test_tp_without_a_process_group(tiny):

@@ -316,6 +316,26 @@ def test_the_scan_covers_the_rgb_only_and_encoder_modules():
         assert f"multimodal_sam_adapter_torch/{path}" in PORT_FILES, path
 
 
+def test_the_scan_covers_the_graft_entry():
+    """graft_entry.py, the counterpart of __graft_entry__.py, is scanned
+    like the rest: it keeps its own copy of the tiny backbone dict and
+    imports neither JAX, nor the JAX package, nor the root entry points
+    that import them."""
+    path = "multimodal_sam_adapter_torch/graft_entry.py"
+    assert path in PORT_FILES
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    mods = [m.split(".")[0] for m in _imported_modules(tree)]
+    assert not set(mods) & (set(FORBIDDEN) | {"__graft_entry__", "train",
+                                                "bench"}), mods
+    names = {t.id for node in tree.body if isinstance(node, ast.Assign)
+             for t in node.targets if isinstance(t, ast.Name)}
+    assert "TINY_BACKBONE" in names
+    for p in PORT_FILES:
+        tree = ast.parse((ROOT / p).read_text(), filename=p)
+        assert "__graft_entry__" not in [
+            m.split(".")[0] for m in _imported_modules(tree)], p
+
+
 def test_the_scan_sees_an_import_of_the_jax_package():
     tree = ast.parse("def f():\n    from multimodal_sam_adapter_tpu.data "
                      "import build_dataset\n    import jax.numpy as jnp\n")
