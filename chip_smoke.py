@@ -18,11 +18,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    its plain PyTorch version in float32 and bfloat16 (tolerances in
    kernel_checks.py), with CUDA-event times of kernel and plain and the
    card's bound for the same work; for K1 and K2 the time of one SDPA call
-   on the same inputs (bf16), the yardstick; for K5 its ms per forward
-   (each stage's ms times its blocks); for K6 the time of cuDNN's
-   conv_transpose2d on its c2 and weight (`product_ms`: the product alone,
-   a yardstick, not the same function). K5's delta-only mode (training's:
-   no shortcut added) at the four stage shapes, batch 3, against the plain
+   on the same inputs (float32 and bf16), the yardstick; for K5 its ms per
+   forward (each stage's ms times its blocks); for K6 the time of cuDNN's
+   conv_transpose2d on its c2 and weight in both dtypes (`product_ms`: the
+   product alone, a yardstick, not the same function). K5's delta-only
+   mode (training's: no shortcut added) at the four stage shapes, batch 3, against the plain
    delta, its ms beside the eval mode's. A grad-recording call of K1-K5 goes through the kernel's
    autograd Function: it returns the kernel's own output, and its
    gradients equal the plain version's autodiff (K2: the banded backward
@@ -49,8 +49,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    init_train_state, make_train_step; weights from the seed, with_cp on,
    drop path 0.3 / 0.4 and dropout 0.1 on, 1024^2, B=1, OHEM loss). One
    micro-step through the kernels against one through the plain versions
-   on the same weights, batch and masks: in float32 the loss within 1e-3
-   relative and all gradients within 1e-2 relative L2; in bf16 autocast
+   on the same weights, batch and masks (each one call's host ms to a
+   synchronize beside it): in float32 the loss within 1e-3 relative and
+   all gradients within 1e-2 relative L2; in bf16 autocast
    the loss within 1e-2 and the gradients' cosine similarity >= 0.98 over
    all and >= 0.95 for each watched tensor. Then two optimizer updates of
    grad_accum 4 micro-batches each in bf16: finite losses, every
@@ -229,12 +230,12 @@ Phases, one line each; any failure exits non-zero before the last line:
 15. tools: the port's tools and the evidence that it learns. (a)
    tools/make_synth_deliver.py writes the learnable synthetic DeLiVER
    (seed 1, 16 samples a cell: 64 a split, 80^2). (b) tools/train.py
-   deliver_tiny --max-epochs 40 --seed 1 trains on it in bf16 on the
+   deliver_tiny --max-epochs 20 --seed 1 trains on it in bf16 on the
    kernel path, evaluated every 4 epochs (`--cfg-options
-   evaluation.interval=4`: 10 evaluations, which early stopping's
+   evaluation.interval=4`: 5 evaluations, which early stopping's
    patience of 10 cannot cut short): K1-K6 launched exactly as
-   deliver_tiny's geometry predicts (1280 micro-steps of 4 / 4 / 8 / 12 /
-   48 / 0 and 1280 eval forwards, two a validation sample, of 2 / 2 / 4 /
+   deliver_tiny's geometry predicts (640 micro-steps of 4 / 4 / 8 / 12 /
+   48 / 0 and 640 eval forwards, two a validation sample, of 2 / 2 / 4 /
    6 / 24 / 1). (c)
    tools/test.py on the best checkpoint on the test split: its mIoU beside
    the JAX package's 52.21 from its entries at the same settings on one
@@ -541,7 +542,7 @@ def check_delta(torch, kc):
                   f"disagree beyond {tol}")
 
 
-def check_library(torch, kc, name, case):
+def check_library(torch, kc, name, case, tag):
     """The yardstick: the fastest SDPA backend on the same inputs as the
     kernel's flagship case (its operands built outside the timed calls),
     and how far its output lies from the plain version's."""
@@ -552,20 +553,21 @@ def check_library(torch, kc, name, case):
     B, N, C = want.shape
     got = out.transpose(1, 2).reshape(B, N, C)
     err = (got.float() - want.float()).abs().max().item()
-    line("kernels", name=name, library="scaled_dot_product_attention",
-         backend=backend, library_ms=f"{ms:.4f}",
-         library_max_abs_err=f"{err:.3e}")
+    line("kernels", name=name, dtype=tag,
+         library="scaled_dot_product_attention", backend=backend,
+         library_ms=f"{ms:.4f}", library_max_abs_err=f"{err:.3e}")
     return dict(library_ms=ms, library_backend=backend,
                 library_max_abs_err=err)
 
 
-def check_product(kc, case):
+def check_product(kc, case, tag):
     """K6's yardstick: cuDNN's conv_transpose2d on K6's flagship c2 and
-    weight (bf16), the product and depth-to-space alone."""
+    weight, the product and depth-to-space alone (float32 with TF32 off,
+    as main sets it)."""
     fn, args = kc.product_case(case[1])
     ms = kc.time_ms(fn, args)
-    line("kernels", name="pixel_shuffle_up_bn", product="conv_transpose2d",
-         product_ms=f"{ms:.4f}")
+    line("kernels", name="pixel_shuffle_up_bn", dtype=tag,
+         product="conv_transpose2d", product_ms=f"{ms:.4f}")
     return dict(product_ms=ms)
 
 
@@ -612,7 +614,8 @@ def phase_kernels(torch, kc):
     at each stage), keeps them under `shapes` and weighs them by the
     stage's blocks in `per_forward_ms`. K1, K2 and K5 are checked too at
     their off-path shapes (`ragged`, not summed); K1 and K2 are timed
-    beside one SDPA call (bf16, flagship shapes)."""
+    beside one SDPA call, K6 beside cuDNN's product alone, at the flagship
+    shapes in float32 (under the row's `f32`) and bf16."""
     rows = []
     for name, meta in kc.KERNELS.items():
         row = dict(name=name, route="cuda", source=meta["source"],
@@ -647,13 +650,17 @@ def phase_kernels(torch, kc):
         check_autograd(torch, kc, name)
         if name == "convnext_block":
             check_delta(torch, kc)
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        if attention:
-            row.update(check_library(
-                torch, kc, name, kc.flagship_case(name, torch.bfloat16, g)))
-        if name == "pixel_shuffle_up_bn":
-            row.update(check_product(
-                kc, kc.flagship_case(name, torch.bfloat16, g)))
+        row["f32"].update(library_ms=None, library_backend=None)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            if attention:
+                lib = check_library(torch, kc, name,
+                                    kc.flagship_case(name, dtype, g), tag)
+            elif name == "pixel_shuffle_up_bn":
+                lib = check_product(kc, kc.flagship_case(name, dtype, g), tag)
+            else:
+                continue
+            (row["f32"] if tag == "f32" else row).update(lib)
         rows.append(row)
     return rows
 
@@ -951,11 +958,16 @@ def compare_paths(torch, kernels, model, img, gt, tag, dtype, ref=None,
     plain bf16 path is (within TRAIN_COS_SLACK). The launches must be
     `expect`. Returns (launches, the plain path's gradients)."""
     kernels.reset_launches()
+    t0 = time.perf_counter()
     loss_k = micro_step(torch, kernels, model, img, gt, 1, dtype, False)
     torch.cuda.synchronize()
+    ms_k = (time.perf_counter() - t0) * 1e3
     counts = dict(kernels.LAUNCHES)
     g_k = grads_of(model)
+    t0 = time.perf_counter()
     loss_p = micro_step(torch, kernels, model, img, gt, 1, dtype, True)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
     g_p = grads_of(model)
     model.zero_grad(set_to_none=True)
     lk, lp = loss_k.item(), loss_p.item()
@@ -975,7 +987,8 @@ def compare_paths(torch, kernels, model, img, gt, tag, dtype, ref=None,
          grad_cosine=f"{cos:.6f}", watched_cosine=compact(
              {short[n]: round(v, 5) for n, v in each.items()}),
          finite=all(torch.isfinite(t).all().item() for t in g_k.values()),
-         launches=compact(counts))
+         launches=compact(counts), step_ms_kernel=f"{ms_k:.1f}",
+         step_ms_plain=f"{ms_p:.1f}")
     if to_f32:
         line(phase, dtype=tag, watched_cosine_to_f32_kernel_plain=compact(
             {short[n]: [round(k, 5), round(p, 5)]
@@ -3795,16 +3808,19 @@ def phase_rgb(torch, kernels, smi, kc):
 # --------------------------------------------------------------- phase 15
 
 # the learnable synthetic DeLiVER of tools/make_synth_deliver.py (seed 1,
-# 16 samples a cell: 64 a split) and deliver_tiny trained on it for 40
-# epochs, as the JAX package's artifact eval_single_scale_20260819_103412
-# records (~0.4 untrained); evaluated every TOOLS_EVAL_INTERVAL epochs: 10
-# evaluations, so early stopping (patience 10 evaluations) cannot end the
-# run before its 40 epochs. JAX_SYNTH_MIOU: the JAX package's root
+# 16 samples a cell: 64 a split) and deliver_tiny trained on it for 20
+# epochs, half the 40 of the JAX package's artifact
+# eval_single_scale_20260819_103412 (~0.4 untrained), whose best epoch is
+# the 7th on the card and in JAX: 40 epochs took 730-934 s on an H100's
+# host beside phases 11-14, and set the whole run's end past its 1200 s
+# limit; evaluated every TOOLS_EVAL_INTERVAL epochs: 5 evaluations, so
+# early stopping (patience 10 evaluations) cannot end the run before its
+# 20 epochs. JAX_SYNTH_MIOU: the JAX package's root
 # train.py and test.py at these settings (bf16, --seed 1, 40 epochs,
 # evaluation.interval=4) on one CPU device, its batch the config's 2:
 # test mIoU of the best checkpoint (epoch 7); the artifact's 44.35 is
 # not what that entry gives today (PERF.md §6)
-TOOLS_SEED, TOOLS_PER_CELL, TOOLS_EPOCHS = 1, 16, 40
+TOOLS_SEED, TOOLS_PER_CELL, TOOLS_EPOCHS = 1, 16, 20
 TOOLS_EVAL_INTERVAL = 4
 JAX_SYNTH_MIOU = 52.21
 MIN_SYNTH_MIOU = 40.0
@@ -3842,7 +3858,7 @@ def tools_launches(steps, evals, val):
 
 
 def tools_convergence(torch, kernels, smi, work):
-    """(a)-(c): the synthetic tree, 40 bf16 epochs of tools/train.py on
+    """(a)-(c): the synthetic tree, 20 bf16 epochs of tools/train.py on
     the kernel path, tools/test.py on the best checkpoint. Returns the
     run's launches, the best checkpoint, the tree and the test mIoU."""
     from multimodal_sam_adapter_torch.tools import make_synth_deliver

@@ -170,9 +170,11 @@ ATTENTION_RAGGED = (("fmb", dict(grid=50, table_rows=2 * GRID - 1)),
                     ("tp2_heads", dict(heads=8)))
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): device memory
-# bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+# bytes/s, bf16 and TF32 tensor-core FLOP/s, float32 FLOP/s outside the
+# tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TENSOR_BF16 = 989e12
+PEAK_TENSOR_TF32 = 494.7e12
 PEAK_FP32 = 67e12
 
 
@@ -501,17 +503,17 @@ def bound_ms(name: str, args: tuple, out: torch.Tensor
              ) -> Tuple[float, str]:
     """The least time the card could take for `work(name, args, out)`:
     the larger of its bytes over the memory rate and its operations over
-    the peak rates of their type (bf16 matrix products on the tensor
-    cores, everything else, float32 products too, at the float32 rate;
-    the two kinds of unit run side by side, so the slower one counts).
-    Returns (ms, "bytes" or "operations")."""
+    the peak rates of their type (matrix products on the tensor cores, at
+    the bf16 rate or, in float32, at TF32's; everything else at the
+    float32 rate; the two kinds of unit run side by side, so the slower
+    one counts). A float32 kernel that keeps float32 accuracy on the
+    tensor cores (K5's 3xTF32: three TF32 products for each) reaches a
+    third of this bound at most. Returns (ms, "bytes" or "operations")."""
     w = work(name, args, out)
     bytes_s = w["bytes"] / PEAK_BYTES_PER_S
-    if out.dtype == torch.bfloat16:
-        ops_s = max(w["tensor_ops"] / PEAK_TENSOR_BF16,
-                    w["other_ops"] / PEAK_FP32)
-    else:
-        ops_s = (w["tensor_ops"] + w["other_ops"]) / PEAK_FP32
+    tensor_peak = (PEAK_TENSOR_BF16 if out.dtype == torch.bfloat16
+                   else PEAK_TENSOR_TF32)
+    ops_s = max(w["tensor_ops"] / tensor_peak, w["other_ops"] / PEAK_FP32)
     if bytes_s >= ops_s:
         return bytes_s * 1e3, "bytes"
     return ops_s * 1e3, "operations"

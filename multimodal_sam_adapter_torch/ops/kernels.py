@@ -76,8 +76,7 @@ _SIGNATURES = {
                                  _I, _I, _F, _VP],
     "msa_deform_attn": [_VP] * 5 + [_I] * 7 + [ctypes.POINTER(_I)]
                        + [_I] * 7 + [_VP],
-    "msa_convnext_block": [_VP] * 14 + [_I, _I, _I, _I, _I, _F, _I, _I,
-                                        _I, _I, _VP],
+    "msa_convnext_block": [_VP] * 15 + [_I] * 5 + [_F] + [_I] * 5 + [_VP],
     "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
                                 _LL, _LL, _LL, _LL, _VP, _VP, _VP]
                                + [_I] * 12 + [_VP],

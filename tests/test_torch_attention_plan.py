@@ -228,10 +228,11 @@ def test_attention_bounds_at_the_flagship_shapes():
     assert w["tensor_ops"] == pytest.approx(69.8e9, rel=2e-3)
     assert by == "operations" and ms == pytest.approx(
         w["tensor_ops"] / 989e9)
-    # float32: the same products on the CUDA cores
+    # float32: the same products at TF32's tensor-core rate
     ms32, _ = kc.bound_ms("flash_attention", k2,
                           _meta(1, 4096, kc.EMBED, dtype=torch.float32))
-    assert ms32 > 10 * ms
+    assert ms32 == pytest.approx(w["tensor_ops"] / 494.7e9)
+    assert ms32 == pytest.approx(2 * ms, rel=0.01)
 
 
 def test_bounds_of_the_other_kernels_at_the_flagship_shapes():
