@@ -18,7 +18,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    its plain PyTorch version in float32 and bfloat16 (tolerances in
    kernel_checks.py), with CUDA-event times of kernel and plain and the
    card's bound for the same work; for K1 and K2 the time of one SDPA call
-   on the same inputs (float32 and bf16), the yardstick; for K5 its ms per
+   on the same inputs (float32 and bf16 at the flagship shapes, float32
+   at the others too), the yardstick; for K5 its ms per
    forward (each stage's ms times its blocks); for K6 the time of cuDNN's
    conv_transpose2d on its c2 and weight in both dtypes (`product_ms`: the
    product alone, a yardstick, not the same function). K5's delta-only
@@ -542,10 +543,10 @@ def check_delta(torch, kc):
                   f"disagree beyond {tol}")
 
 
-def check_library(torch, kc, name, case, tag):
-    """The yardstick: the fastest SDPA backend on the same inputs as the
-    kernel's flagship case (its operands built outside the timed calls),
-    and how far its output lies from the plain version's."""
+def check_library(torch, kc, name, case, tag, label="flagship"):
+    """The yardstick: the fastest SDPA backend on the same inputs as one of
+    the kernel's cases (its operands built outside the timed calls), and
+    how far its output lies from the plain version's."""
     fn, args = case
     ms, backend, out = kc.time_library(name, args)
     want = kc.plain_reference(fn, args)
@@ -553,7 +554,7 @@ def check_library(torch, kc, name, case, tag):
     B, N, C = want.shape
     got = out.transpose(1, 2).reshape(B, N, C)
     err = (got.float() - want.float()).abs().max().item()
-    line("kernels", name=name, dtype=tag,
+    line("kernels", name=name, shape=label, dtype=tag,
          library="scaled_dot_product_attention", backend=backend,
          library_ms=f"{ms:.4f}", library_max_abs_err=f"{err:.3e}")
     return dict(library_ms=ms, library_backend=backend,
@@ -615,7 +616,8 @@ def phase_kernels(torch, kc):
     stage's blocks in `per_forward_ms`. K1, K2 and K5 are checked too at
     their off-path shapes (`ragged`, not summed); K1 and K2 are timed
     beside one SDPA call, K6 beside cuDNN's product alone, at the flagship
-    shapes in float32 (under the row's `f32`) and bf16."""
+    shapes in float32 (under the row's `f32`) and bf16, and K1 and K2 in
+    float32 at their off-path shapes too."""
     rows = []
     for name, meta in kc.KERNELS.items():
         row = dict(name=name, route="cuda", source=meta["source"],
@@ -623,10 +625,14 @@ def phase_kernels(torch, kc):
                    library_backend=None)
         attention = name in ("window_attention", "flash_attention")
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            checked = [(on_path, check_case(torch, kc, name, label, case,
-                                            dtype, tag))
-                       for label, on_path, case in kc.cases(name, dtype,
-                                                            SEED)]
+            checked = []
+            for label, on_path, case in kc.cases(name, dtype, SEED):
+                res = check_case(torch, kc, name, label, case, dtype, tag)
+                if attention and tag == "f32" and not on_path:
+                    # float32 K1 / K2 off the main path: SDPA beside them
+                    res.update(check_library(torch, kc, name, case, tag,
+                                             label))
+                checked.append((on_path, res))
             cases = [c for on_path, c in checked if on_path]
             ragged = [c for on_path, c in checked if not on_path]
             biggest = max(cases, key=lambda c: c["bound_ms"])

@@ -552,6 +552,7 @@ def main(argv=None) -> None:
     tolerance (with `--time`, the kernel's ms per call); exit 1 if a case
     is past it."""
     import argparse
+    import hashlib
     import json
     from pathlib import Path
 
@@ -571,6 +572,12 @@ def main(argv=None) -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also give each case's device us per kernel name "
                          "(torch.profiler; traces under build/profiles/)")
+    ap.add_argument("--library", action="store_true",
+                    help="K1 / K2: also time SDPA on the case's inputs "
+                         "(`time_library`), as `library_ms`")
+    ap.add_argument("--digest", action="store_true",
+                    help="also give a sha256 of the kernel's output bytes, "
+                         "to hold two builds bit-equal")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the kernel checks need a CUDA card")
@@ -605,6 +612,14 @@ def main(argv=None) -> None:
                     if name == "pixel_shuffle_up_bn":
                         res["product_ms"] = time_ms(*product_case(fargs),
                                                     iters=20)
+                if args.library and name in ("window_attention",
+                                             "flash_attention"):
+                    ms, backend, _ = time_library(name, fargs, iters=20)
+                    res.update(library_ms=ms, library_backend=backend)
+                if args.digest:
+                    res["sha256"] = hashlib.sha256(
+                        got.contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes()).hexdigest()
                 if args.profile:
                     res["kernel_us"] = kernel_us(
                         fn, fargs, Path(__file__).resolve().parent / "build"

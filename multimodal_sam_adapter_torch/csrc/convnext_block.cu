@@ -158,17 +158,6 @@ __device__ __forceinline__ float gelu_as(float v) {
   return 0.5f * v * (1.f + copysignf(erf_a, z));
 }
 
-// x's TF32 halves (3xTF32): big = tf32(x) rounded to nearest, ties away
-// (cvt.rna), small = tf32(x - big), each as the bits of a float32 whose
-// low 13 mantissa bits are zero; x - big is exact, so x = big + small to
-// 2^-21 |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small)
-      : "f"(x - __uint_as_float(big)));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

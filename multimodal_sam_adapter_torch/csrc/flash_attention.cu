@@ -27,18 +27,26 @@
 // and (2W-1, D) tables in the prologue), not by torch: each thread keeps
 // the rel_w terms of its fixed key columns in registers for the whole loop
 // and reads two rel_h values a row per tile. W = 50 (FMB's 800^2) takes
-// 100 keys of a 128-row tile, the rest masked. float32 stays on the
-// CUDA-core kernel of rel_pos_attention.cuh, with rel terms from torch.
-#include "rel_pos_attention.cuh"
+// 100 keys of a 128-row tile, the rest masked.
+//
+// float32 (rel_pos_attention_f32.cuh, shared with K1): the 3xTF32 core on
+// .tf32 wgmma, tiles of one grid row (64 keys; W = 50: 50 of them), the
+// rel terms computed in the kernel from the float32 resized tables.
+#include "rel_pos_attention_f32.cuh"
 #include "rel_pos_attention_wgmma.cuh"
 
-extern "C" int msa_flash_attention(const void* qkv, const void* rel_h,
-                                   const void* rel_w, void* out, int batch,
+// float32: th (2 grid_h - 1, head_dim) and tw (2 grid_w - 1, head_dim) are
+// the resized rel-pos tables; key tiles of rows_per_tile grid rows,
+// n_tiles of them
+extern "C" int msa_flash_attention(const void* qkv, const void* th,
+                                   const void* tw, void* out, int batch,
                                    int heads, int head_dim, int grid_h,
-                                   int grid_w, float scale, void* stream) {
-  return msa::dispatch_rel_pos_attention<false>(
-      qkv, rel_h, rel_w, out, batch, heads, head_dim, grid_h, grid_w, scale,
-      stream);
+                                   int grid_w, int rows_per_tile, int n_tiles,
+                                   float scale, void* stream) {
+  return msa::dispatch_rel_pos_attention_f32(qkv, th, tw, out, batch, heads,
+                                             head_dim, grid_h, grid_w,
+                                             rows_per_tile, n_tiles, scale,
+                                             stream);
 }
 
 // bf16: th (parts, 2 grid_h - 1, head_dim) and tw (parts, 2 grid_w - 1,

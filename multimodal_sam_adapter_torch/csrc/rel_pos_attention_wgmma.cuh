@@ -115,12 +115,6 @@ struct AttnParams {
   float scale_log2;    // scale * log2(e)
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // acc (64 x N) (+)= A (64 x D) B^T, A and B K-major tiles in shared memory
 template <int D, int N>
 __device__ __forceinline__ void product_qk(float (&acc)[N / 2],

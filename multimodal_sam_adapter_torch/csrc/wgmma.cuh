@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the wgmma kernels (the bf16 attention
-// core of K1/K2, K5's two GEMMs in bf16 and in 3xTF32 float32, K6's bf16
-// GEMM): mbarriers, TMA tensor loads and stores and the host side's tensor
-// maps, wgmma shared-memory descriptors and the wgmma products themselves
-// (PTX ISA 8.x:
+// Hopper (sm_90a) building blocks of the wgmma kernels (K1/K2's attention
+// cores in bf16 and in 3xTF32 float32, K5's two GEMMs in bf16 and in 3xTF32
+// float32, K6's bf16 GEMM): mbarriers, TMA tensor loads and stores and the
+// host side's tensor maps, wgmma shared-memory descriptors, the wgmma
+// products themselves and the TF32 split of 3xTF32 (PTX ISA 8.x:
 // "mbarrier", "cp.async.bulk.tensor", "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate").
 //
@@ -221,6 +221,23 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// x's TF32 halves (3xTF32): big = tf32(x) rounded to nearest, ties away
+// (cvt.rna), small = tf32(x - big), each as the bits of a float32 whose
+// low 13 mantissa bits are zero; x - big is exact, so x = big + small to
+// 2^-21 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small)
+      : "f"(x - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -583,6 +600,40 @@ struct WgmmaRS<208, kTransB> {
 // K-major; a k8 step is 32 bytes, as bf16's k16). scale_d == 0 overwrites d.
 template <int N>
 struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
 
 template <>
 struct WgmmaTf32<64> {

@@ -33,18 +33,27 @@
 // O += P V wgmma. What is left of the gap to the bound: every m-tile block
 // loads the window's K and V and the tables again (~120 MB from L2 for
 // 40 MB of data), and 196 = 3 x 64 + 4 rows waste most of a fourth
-// m-tile. float32 stays on the CUDA-core kernel of rel_pos_attention.cuh,
-// from the gathered (N, D) tables.
-#include "rel_pos_attention.cuh"
+// m-tile.
+//
+// float32 (rel_pos_attention_f32.cuh, shared with K2): the window is a
+// ws x ws grid, and the 3xTF32 core walks its keys in tiles of 4 grid
+// rows (56 of 64 keys; the fourth tile 28), the rel terms computed in the
+// kernel from the float32 (2 ws - 1, D) tables. Its 128-query blocks
+// leave 60 of 256 rows of a 196-query window idle.
+#include "rel_pos_attention_f32.cuh"
 #include "rel_pos_attention_wgmma.cuh"
 
-extern "C" int msa_window_attention(const void* qkv, const void* rh,
-                                    const void* rw, void* out, int windows,
+// float32: th, tw are the (2 ws - 1, head_dim) rel-pos tables; key tiles
+// of rows_per_tile grid rows, n_tiles of them
+extern "C" int msa_window_attention(const void* qkv, const void* th,
+                                    const void* tw, void* out, int windows,
                                     int heads, int head_dim, int ws,
+                                    int rows_per_tile, int n_tiles,
                                     float scale, void* stream) {
-  return msa::dispatch_rel_pos_attention<true>(qkv, rh, rw, out, windows,
-                                               heads, head_dim, ws, ws, scale,
-                                               stream);
+  return msa::dispatch_rel_pos_attention_f32(qkv, th, tw, out, windows,
+                                             heads, head_dim, ws, ws,
+                                             rows_per_tile, n_tiles, scale,
+                                             stream);
 }
 
 // bf16: th, tw are the (parts, 2 ws - 1, head_dim) rel-pos tables as bf16

@@ -3,7 +3,9 @@ SAM), plain PyTorch: the counterpart of multimodal_sam_adapter_tpu/ops/
 attention.py.
 
 `attention_with_decomposed_rel_pos` is the plain version of both attention
-kernels (ops/window_attention.py and ops/flash_attention.py).
+kernels (ops/window_attention.py and ops/flash_attention.py). Their float32
+route shares one kernel (csrc/rel_pos_attention_f32.cuh), whose key tiles
+`f32_key_tiles` plans and whose tables `rel_table_f32` gives.
 """
 from __future__ import annotations
 
@@ -63,6 +65,40 @@ def rel_table_parts(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
     t = resized_rel_table(rel_pos.float(), size)
     hi = t.to(torch.bfloat16)
     return torch.stack((hi, (t - hi.float()).to(torch.bfloat16)))
+
+
+# The float32 core's plan (csrc/rel_pos_attention_f32.cuh: kF32BlockQ,
+# kF32TileKeys, kF32MaxSide, kF32RelLd, kF32SmemMax): blocks of 128
+# queries, key tiles of whole grid rows in 64 keys, grid sides of at most
+# 64, rel_h rows of 65 floats (the last one -inf), 227 KB a block
+F32_BLOCK_Q = 128
+F32_TILE_KEYS = 64
+F32_MAX_SIDE = 64
+F32_REL_LD = 65
+F32_SMEM_MAX = 232448
+
+
+def f32_key_tiles(q_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """(rows a tile R, tiles) of the float32 kernel over an (H, W) grid:
+    R whole grid rows in F32_TILE_KEYS keys (at most H of them), ceil(H /
+    R) tiles. K2's 64x64 and FMB's 50x50 take one row a tile, K1's 14x14
+    windows four."""
+    H, W = q_hw
+    if not (1 <= H <= F32_MAX_SIDE and 1 <= W <= F32_MAX_SIDE):
+        raise ValueError(f"grid {H}x{W}: the float32 kernel takes grid "
+                         f"sides of at most {F32_MAX_SIDE}")
+    rows = min(F32_TILE_KEYS // W, H)
+    return rows, -(-H // rows)
+
+
+def rel_table_f32(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
+    """The float32 kernel's form of a rel-pos table for a grid side of
+    `size`: (2 * size - 1, C) float32, contiguous. A float32 table of that
+    length is passed as it is (no copy); any other is resized."""
+    if (rel_pos.dtype == torch.float32 and rel_pos.is_contiguous()
+            and rel_pos.shape[0] == 2 * size - 1):
+        return rel_pos
+    return resized_rel_table(rel_pos.float(), size).contiguous()
 
 
 def check_table_parts(name: str, t: torch.Tensor, rows: int,

@@ -5,7 +5,9 @@ token grid and returns the heads-packed (B, N, C) output. On a CUDA tensor
 it launches the hand-written kernel (csrc/flash_attention.cu): bfloat16 on
 the wgmma/TMA core, which computes the rel terms itself from the resized
 (2H - 1, d) and (2W - 1, d) tables (`rel_table_parts`); float32 on the
-CUDA cores, with the rel terms computed in torch (`rel_terms`). When
+3xTF32 wgmma/TMA core shared with K1, which computes them from the
+float32 resized tables (`rel_table_f32`), in key tiles of whole grid rows
+(`f32_key_tiles`). When
 autograd records the call it goes through `FlashAttentionFunction`: the
 kernel forward, and as its backward the plain version's autodiff one band
 of query rows at a time (`flash_attention_backward`). On a CPU tensor it
@@ -26,9 +28,9 @@ import torch
 from ..utils import flops
 from . import kernels
 from .attention import (attention_with_decomposed_rel_pos,
-                        check_table_parts, get_rel_pos, merge_heads,
-                        rel_pos_bias_terms, rel_table_parts, scores_f32,
-                        split_heads)
+                        check_table_parts, f32_key_tiles,
+                        merge_heads, rel_pos_bias_terms, rel_table_f32,
+                        rel_table_parts, scores_f32, split_heads)
 
 # the bf16 kernel's key tile: two whole grid rows in 128 rows of shared
 # memory, so a grid side is at most 64 (and its table 127 rows)
@@ -53,26 +55,6 @@ def global_key_tiles(q_hw: Tuple[int, int]) -> int:
     return -(-H // GLOBAL_TILE_ROWS)
 
 
-def rel_terms(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
-              rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
-              num_heads: int):
-    """rel_h (B*heads, N, H) and rel_w (B*heads, N, W) from the q slice of
-    qkv, in float32: at bf16 their rounding alone would move the softmax
-    (the terms reach |q| |R| ~ 10)."""
-    B, N, F3 = qkv.shape
-    C = F3 // 3
-    d = C // num_heads
-    H, W = q_hw
-    r_q = qkv[..., :C].reshape(B, H, W, num_heads, d).float()
-    Rh = get_rel_pos(H, H, rel_pos_h).float()
-    Rw = get_rel_pos(W, W, rel_pos_w).float()
-    rel_h = torch.einsum("bhwmc,hkc->bmhwk", r_q, Rh).reshape(
-        B * num_heads, N, H)
-    rel_w = torch.einsum("bhwmc,wkc->bmhwk", r_q, Rw).reshape(
-        B * num_heads, N, W)
-    return rel_h.contiguous(), rel_w.contiguous()
-
-
 @flops.counted("flash_attention")
 def flash_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                     rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
@@ -90,15 +72,16 @@ def flash_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
 
 def flash_attention_kernel(qkv, rel_pos_h, rel_pos_w, q_hw: Tuple[int, int],
                            num_heads: int, scale: float) -> torch.Tensor:
-    """The kernel's launch for `qkv`'s dtype, with its tables or rel terms
-    built from the rel-pos parameters."""
+    """The kernel's launch for `qkv`'s dtype, with its tables built from
+    the rel-pos parameters."""
     H, W = q_hw
     if qkv.dtype == torch.bfloat16:
         return flash_attention_bf16_cuda(
             qkv, rel_table_parts(rel_pos_h, H), rel_table_parts(rel_pos_w, W),
             q_hw, num_heads, scale)
-    rel_h, rel_w = rel_terms(qkv, rel_pos_h, rel_pos_w, q_hw, num_heads)
-    return flash_attention_cuda(qkv, rel_h, rel_w, q_hw, num_heads, scale)
+    return flash_attention_cuda(qkv, rel_table_f32(rel_pos_h, H),
+                                rel_table_f32(rel_pos_w, W), q_hw, num_heads,
+                                scale)
 
 
 def band_attention(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
@@ -204,24 +187,23 @@ def _check_qkv(qkv: torch.Tensor, q_hw: Tuple[int, int], num_heads: int):
     return B, N, C, d
 
 
-def flash_attention_cuda(qkv: torch.Tensor, rel_h: torch.Tensor,
-                         rel_w: torch.Tensor, q_hw: Tuple[int, int],
+def flash_attention_cuda(qkv: torch.Tensor, th: torch.Tensor,
+                         tw: torch.Tensor, q_hw: Tuple[int, int],
                          num_heads: int, scale: float) -> torch.Tensor:
-    """float32: qkv (B, H*W, 3*C); rel_h (B*heads, H*W, H) and rel_w
-    (B*heads, H*W, W) float32. Returns (B, H*W, C)."""
+    """float32: qkv (B, H*W, 3*C); th (2H - 1, d) and tw (2W - 1, d) the
+    rel-pos tables of `rel_table_f32`. Returns (B, H*W, C)."""
     B, N, C, d = _check_qkv(qkv, q_hw, num_heads)
     H, W = q_hw
+    rows, tiles = f32_key_tiles(q_hw)
     kernels.check_operand("qkv", qkv, torch.float32)
-    kernels.check_operand("rel_h", rel_h, torch.float32,
-                          (B * num_heads, N, H))
-    kernels.check_operand("rel_w", rel_w, torch.float32,
-                          (B * num_heads, N, W))
+    kernels.check_operand("th", th, torch.float32, (2 * H - 1, d))
+    kernels.check_operand("tw", tw, torch.float32, (2 * W - 1, d))
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernels.library()
     with torch.cuda.device(qkv.device):
         status = lib.msa_flash_attention(
-            qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-            out.data_ptr(), B, num_heads, d, H, W, float(scale),
+            qkv.data_ptr(), th.data_ptr(), tw.data_ptr(), out.data_ptr(), B,
+            num_heads, d, H, W, rows, tiles, float(scale),
             kernels.current_stream(qkv))
     kernels.check_status("flash_attention", status)
     kernels.count_launch("flash_attention")

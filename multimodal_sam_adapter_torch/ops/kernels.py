@@ -67,11 +67,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "msa_window_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
+    "msa_window_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                             _F, _VP],
     "msa_window_attention_bf16": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _VP],
-    "msa_flash_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
-                            _VP],
+    "msa_flash_attention": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _VP],
     "msa_flash_attention_bf16": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _VP],
     "msa_deform_attn": [_VP] * 5 + [_I] * 7 + [ctypes.POINTER(_I)]

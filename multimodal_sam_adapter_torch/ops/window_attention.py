@@ -4,8 +4,10 @@
 returns the heads-packed (windows, N, C) output. On a CUDA tensor it
 launches the hand-written kernel (csrc/window_attention.cu): bfloat16 on
 the wgmma/TMA core from the (2 ws - 1, d) tables (`rel_table_parts`) and
-the window's 0/1 expansion tiles (`window_expansion`), float32 on the CUDA
-cores from get_rel_pos's gathered (N, d) tables. When autograd records
+the window's 0/1 expansion tiles (`window_expansion`), float32 on the
+3xTF32 wgmma/TMA core shared with K2 from the float32 (2 ws - 1, d) tables
+(`rel_table_f32`), in key tiles of whole window rows (`f32_key_tiles`).
+When autograd records
 the call it goes through `WindowAttentionFunction`: the kernel forward,
 and the autodiff of the plain version recomputed as its backward. On a
 CPU tensor it runs the plain version, `window_attention_plain`.
@@ -23,8 +25,9 @@ import torch
 from ..utils import flops
 from . import kernels
 from .attention import (attention_with_decomposed_rel_pos,
-                        check_table_parts, get_rel_pos, merge_heads,
-                        rel_table_parts, split_heads)
+                        check_table_parts, f32_key_tiles,
+                        merge_heads, rel_table_f32, rel_table_parts,
+                        split_heads)
 
 # keys per tile of the bf16 kernel: a window's ws^2 keys, zero-padded
 WINDOW_TILES = (64, 208)
@@ -91,12 +94,9 @@ def window_attention_kernel(qkv, rel_pos_h, rel_pos_w, ws: int,
         return window_attention_bf16_cuda(
             qkv, rel_table_parts(rel_pos_h, ws),
             rel_table_parts(rel_pos_w, ws), ws, num_heads, scale)
-    N = ws * ws
-    d = qkv.shape[-1] // (3 * num_heads)
-    rh = get_rel_pos(ws, ws, rel_pos_h).reshape(N, d).to(qkv.dtype)
-    rw = get_rel_pos(ws, ws, rel_pos_w).reshape(N, d).to(qkv.dtype)
-    return window_attention_cuda(qkv, rh.contiguous(), rw.contiguous(), ws,
-                                 num_heads, scale)
+    return window_attention_cuda(qkv, rel_table_f32(rel_pos_h, ws),
+                                 rel_table_f32(rel_pos_w, ws), ws, num_heads,
+                                 scale)
 
 
 class WindowAttentionFunction(torch.autograd.Function):
@@ -142,21 +142,24 @@ def _check_qkv(qkv: torch.Tensor, ws: int, num_heads: int):
     return Wn, N, C, d
 
 
-def window_attention_cuda(qkv: torch.Tensor, rh: torch.Tensor,
-                          rw: torch.Tensor, ws: int, num_heads: int,
+def window_attention_cuda(qkv: torch.Tensor, th: torch.Tensor,
+                          tw: torch.Tensor, ws: int, num_heads: int,
                           scale: float) -> torch.Tensor:
-    """float32: qkv (windows, ws*ws, 3*C); rh, rw: (ws*ws, d) get_rel_pos
-    tables, row qh * ws + kh. Returns (windows, ws*ws, C)."""
+    """float32: qkv (windows, ws*ws, 3*C); th, tw: the (2 ws - 1, d)
+    rel-pos tables of `rel_table_f32`. Returns (windows, ws*ws, C)."""
     Wn, N, C, d = _check_qkv(qkv, ws, num_heads)
+    window_keys_per_tile(ws)  # the windows the bf16 route takes, no more
+    rows, tiles = f32_key_tiles((ws, ws))
     kernels.check_operand("qkv", qkv, torch.float32)
-    kernels.check_operand("rh", rh, torch.float32, (N, d))
-    kernels.check_operand("rw", rw, torch.float32, (N, d))
+    kernels.check_operand("th", th, torch.float32, (2 * ws - 1, d))
+    kernels.check_operand("tw", tw, torch.float32, (2 * ws - 1, d))
     out = torch.empty((Wn, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernels.library()
     with torch.cuda.device(qkv.device):
         status = lib.msa_window_attention(
-            qkv.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-            Wn, num_heads, d, ws, float(scale), kernels.current_stream(qkv))
+            qkv.data_ptr(), th.data_ptr(), tw.data_ptr(), out.data_ptr(),
+            Wn, num_heads, d, ws, rows, tiles, float(scale),
+            kernels.current_stream(qkv))
     kernels.check_status("window_attention", status)
     kernels.count_launch("window_attention")
     return out

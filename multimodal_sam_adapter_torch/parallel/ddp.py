@@ -195,15 +195,25 @@ def launch_ranks(argv: Sequence[str], world: int, timeout: float,
                  env: Optional[Dict[str, str]] = None,
                  cwd: Optional[str] = None) -> List[Tuple[int, str]]:
     """Run `argv` as `world` processes on this host, each with torchrun's
-    environment (a free port on localhost) on top of `env` (default: this
-    process's), and wait for them. Returns each rank's (exit code,
-    output: stdout and stderr). Ranks still running after `timeout`
-    seconds are killed (exit code None then); no process outlives the
-    call."""
-    port = free_port()
+    environment on top of `env` (default: this process's), and wait for
+    them. Returns each rank's (exit code, output: stdout and stderr).
+    Ranks still running after `timeout` seconds are killed (exit code None
+    then); no process outlives the call.
+
+    The ranks meet at a TCPStore that this call hosts, as torchrun's agent
+    does (`TORCHELASTIC_USE_AGENT_STORE`: every rank a client): its port is
+    bound before any rank starts and held until the last one ends, so no
+    other process can take it or join the group. (A port probed free and
+    left for rank 0 to bind could be taken in between, or handed to
+    another launch's ranks, whose group would then take in strangers.)"""
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False)
+    rendezvous = dict(TORCHELASTIC_USE_AGENT_STORE=str(True),
+                      TORCHELASTIC_RESTART_COUNT="0")
     procs = [subprocess.Popen(list(argv), cwd=cwd,
                               env=dict(env or os.environ,
-                                       **rank_env(r, world, port)),
+                                       **rank_env(r, world, store.port),
+                                       **rendezvous),
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
@@ -222,4 +232,5 @@ def launch_ranks(argv: Sequence[str], world: int, timeout: float,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        del store
     return out

@@ -2,14 +2,14 @@
 
 `spawn(task, out_dir, ...)` starts `world` processes of this file over a
 gloo process group on localhost, each with torchrun's environment (RANK,
-WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT on a
-free port; the port's parallel/ddp.py:launch_ranks) and one torch
-thread, waits for them within a time limit of its own (then kills them
-and fails), and returns each rank's results, the dict the task saved to
-`<out_dir>/rank<r>.pt`, with its output under "log". The tasks build
-their inputs from seeds, and the tests build the single-process
-references from the same functions, so every rank holds rows rank x B
-... of the reference's global batch.
+WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT of a
+store that the launch holds; the port's parallel/ddp.py:launch_ranks)
+and one torch thread, waits for them within a time limit of its own
+(then kills them and fails), and returns each rank's results, the dict
+the task saved to `<out_dir>/rank<r>.pt`, with its output under "log".
+The tasks build their inputs from seeds, and the tests build the
+single-process references from the same functions, so every rank holds
+rows rank x B ... of the reference's global batch.
 
 A task returns only what its test reads: a tensor that a test compares
 bit for bit with another comes back as its `digest` (dtype, shape and a
@@ -29,24 +29,19 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT = 120
+# the `tp_optim` task's own limit: it runs ten training steps and a
+# checkpoint round trip a rank, 35 s on an idle 8-core host, 76 s beside
+# eight busy processes there, and under the whole suite's load (six
+# pytest workers and their ranks on those cores) it outran the 120 s of
+# the others
+TP_OPTIM_TIMEOUT = 600
 
 
 def run_ranks(cmd, world: int = 2, timeout: float = SPAWN_TIMEOUT,
               cwd=None):
     """Run `cmd` as `world` ranks; returns their outputs. A rank that
     fails, or ranks still running after `timeout` seconds (killed then),
-    fail the caller with every rank's output. The free port is probed
-    before rank 0 binds it: if another process took it in between, the
-    ranks run once more on another."""
-    try:
-        return _run_ranks(cmd, world, timeout, cwd)
-    except AssertionError as e:
-        if "ddress already in use" not in str(e):
-            raise
-        return _run_ranks(cmd, world, timeout, cwd)
-
-
-def _run_ranks(cmd, world, timeout, cwd):
+    fail the caller with every rank's output."""
     from multimodal_sam_adapter_torch.parallel.ddp import launch_ranks
 
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))

@@ -220,3 +220,30 @@ def test_launch_ranks_sets_torchruns_environment_and_kills_at_the_limit():
                               "import time; time.sleep(60)"], 2, 1)
     assert [rc for rc, _ in ranks] == [None, None]
     assert time.monotonic() - t < 30
+
+
+def test_launch_ranks_holds_the_rendezvous_port_its_ranks_meet_at():
+    """The ranks' MASTER_PORT is bound by the launch before they start (no
+    rank, nor any other process, can bind it: no second group can form
+    there), and the ranks meet at it as clients of the launch's store:
+    a gloo all-reduce over three ranks."""
+    import sys
+
+    code = (
+        "import os, socket, torch, torch.distributed as dist\n"
+        "s = socket.socket()\n"
+        "try:\n"
+        "    s.bind(('localhost', int(os.environ['MASTER_PORT'])))\n"
+        "    held = False\n"
+        "except OSError:\n"
+        "    held = True\n"
+        "s.close()\n"
+        "dist.init_process_group('gloo')\n"
+        "t = torch.ones(1) * (dist.get_rank() + 1)\n"
+        "dist.all_reduce(t)\n"
+        "dist.destroy_process_group()\n"
+        "print('held', held, 'sum', int(t.item()))\n")
+    ranks = ddp.launch_ranks([sys.executable, "-c", code], 3, 120)
+    assert [rc for rc, _ in ranks] == [0, 0, 0], ranks
+    assert [log.split()[-4:] for _, log in ranks] == [
+        ["held", "True", "sum", "6"]] * 3

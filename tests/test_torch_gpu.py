@@ -294,11 +294,13 @@ def test_wrapper_refuses_bad_operands():
 
     dev = _card()
     qkv = torch.zeros((2, 49, 3 * 64), device=dev)
-    rh = torch.zeros((49, 16), device=dev)
+    th = torch.zeros((13, 16), device=dev)
     with pytest.raises(ValueError):
-        window_attention_cuda(qkv[:, :48], rh, rh, 7, 4, 0.25)
+        window_attention_cuda(qkv[:, :48], th, th, 7, 4, 0.25)
     with pytest.raises(TypeError):
-        window_attention_cuda(qkv, rh.double(), rh, 7, 4, 0.25)
+        window_attention_cuda(qkv, th.double(), th, 7, 4, 0.25)
+    with pytest.raises(ValueError, match="shape"):
+        window_attention_cuda(qkv, th[:12], th, 7, 4, 0.25)
     strided = torch.zeros((2, 3 * 64, 49), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        window_attention_cuda(strided, rh, rh, 7, 4, 0.25)
+        window_attention_cuda(strided, th, th, 7, 4, 0.25)

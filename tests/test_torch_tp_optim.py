@@ -177,7 +177,8 @@ def ranks(wide, reference, tmp_path_factory):
                 "gt": torch.from_numpy(wide["gt"]).long()}, d / "batch.pt")
     torch.save(reference, d / "ref.pt")
     return ddp_worker.spawn("tp_optim", d, d, d / "sd.pt", d / "batch.pt",
-                            d / "ref.pt", world=4)
+                            d / "ref.pt", world=4,
+                            timeout=ddp_worker.TP_OPTIM_TIMEOUT)
 
 
 def test_factored_axes_come_from_the_whole_tensor():
