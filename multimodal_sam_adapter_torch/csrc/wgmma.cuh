@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels (K1/K2's attention
 // cores in bf16 and in 3xTF32 float32, K5's two GEMMs in bf16 and in 3xTF32
-// float32, K6's bf16 GEMM): mbarriers, TMA tensor loads and stores and the
-// host side's tensor maps, wgmma shared-memory descriptors, the wgmma
-// products themselves and the TF32 split of 3xTF32 (PTX ISA 8.x:
+// float32, K6's GEMM in bf16 and in 3xTF32 float32): mbarriers, TMA tensor
+// loads, L2 prefetches and stores and the host side's tensor maps, wgmma
+// shared-memory descriptors, the wgmma products themselves and the TF32
+// split of 3xTF32 (PTX ISA 8.x:
 // "mbarrier", "cp.async.bulk.tensor", "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate").
 //
@@ -110,6 +111,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a box of a tensor map into L2 only (no shared memory, no barrier), for a
+// later load that reads it from there
+__device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map,
+                                                int c0, int c1, int c2,
+                                                int c3) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

@@ -79,7 +79,7 @@ _SIGNATURES = {
                        + [_I] * 7 + [_VP],
     "msa_convnext_block": [_VP] * 15 + [_I] * 5 + [_F] + [_I] * 5 + [_VP],
     "msa_pixel_shuffle_up_bn": [_VP, _LL, _VP, _VP, _LL, _LL, _LL, _LL, _VP,
-                                _LL, _LL, _LL, _LL, _VP, _VP, _VP]
+                                _LL, _LL, _LL, _LL, _VP, _VP, _VP, _VP]
                                + [_I] * 12 + [_VP],
 }
 

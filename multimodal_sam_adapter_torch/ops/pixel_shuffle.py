@@ -9,8 +9,12 @@ depth-to-space never exists as a tensor. On a CPU tensor it runs the plain
 version, `pixel_shuffle_up_bn_plain`.
 
 bfloat16 takes a persistent wgmma GEMM fed by TMA, whose c1 / x1 reads and
-f1 stores go by TMA too; `pixel_shuffle_plan` is its launch plan. float32
-takes a CUDA-core kernel.
+f1 stores go by TMA too. float32 takes the same tiles in 3xTF32 on .tf32
+wgmma (each operand split into two TF32 halves, three products a step,
+~float32 accuracy): a first launch writes the weight's halves K-major into
+a scratch allocated here (`PixelShufflePlan.scratch`), and the epilogue
+reads c1 / x1 from L2, where the producer prefetched them, and writes f1
+from registers. `pixel_shuffle_plan` is their launch plan.
 
 Replaces multimodal_sam_adapter_tpu/ops/pixel_shuffle.py:
 pixel_shuffle_up_bn (Pallas).
@@ -18,7 +22,7 @@ pixel_shuffle_up_bn (Pallas).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,47 +30,53 @@ import torch.nn.functional as F
 from ..utils import flops
 from . import kernels
 
-# the bf16 kernel (csrc/pixel_shuffle.cu): a tile is TILE_M pixels of one
-# c2 row x TILE_N product columns (TILE_N / 4 whole channels), the
-# reduction comes DEPTH at a time through a ring of STAGES
+# the kernels (csrc/pixel_shuffle.cu): a tile is TILE_M pixels of one c2
+# row x TILE_N product columns (TILE_N / 4 whole channels); bf16's
+# reduction comes DEPTH at a time through a ring of STAGES, float32's
+# F32_DEPTH through F32_STAGES, its tiles walked in groups of F32_GROUP
+# row tiles
 TILE_M, TILE_N, DEPTH, STAGES = 128, 128, 64, 4
-# the float32 kernel: 64-pixel x 128-column tiles, one block each
-F32_TILE_M, F32_TILE_N = 64, 128
-# c1 / x1 layouts the bf16 kernel takes (its template instantiations)
+F32_DEPTH, F32_STAGES, F32_GROUP = 32, 4, 16
+# c1 / x1 layouts the kernels take (their template instantiations)
 NCHW, CHANNELS_LAST = 0, 1
 LAYOUT_NAMES = {NCHW: "NCHW", CHANNELS_LAST: "channels-last"}
 # the H100's SMs (the wrapper passes the card's own count) and the shared
 # memory a block may take there
 SMS = 132
 SMEM_LIMIT = 232448
+_ITEMSIZE = {torch.bfloat16: 2, torch.float32: 4}
 
 
 class PixelShufflePlan(NamedTuple):
-    tile_m: int      # pixels of one c2 row a tile (bf16) / a block (f32)
+    tile_m: int      # pixels of one c2 row a tile
     tile_n: int      # product columns a tile
     tiles: int
-    grid: int        # blocks launched (bf16: persistent, one per SM at most)
-    c1_layout: int   # NCHW or CHANNELS_LAST (bf16); -1: any strides (f32)
+    grid: int        # persistent blocks launched, one per SM at most
+    c1_layout: int   # NCHW or CHANNELS_LAST
     x1_layout: int
-    smem_bytes: int  # dynamic (bf16) or static (f32) shared memory a block
+    smem_bytes: int  # dynamic shared memory a block
+    scratch: Tuple[int, ...]  # float32: w_split's shape (2, 4O, C); bf16 ()
 
 
-def operand_layout(name: str, strides: Sequence[int]) -> int:
+def operand_layout(name: str, strides: Sequence[int],
+                   dtype: torch.dtype = torch.bfloat16) -> int:
     """NCHW or CHANNELS_LAST for a (B, O, 2H, 2W) operand's element strides:
     W (NCHW-like) or O (channels-last) innermost, every other stride a
-    multiple of 8 values (TMA's 16 bytes). Anything else raises."""
+    multiple of 16 bytes (TMA's rule: 8 bf16 or 4 float32 values).
+    Anything else raises."""
     s = tuple(int(v) for v in strides)
     if len(s) == 4 and s[3] == 1:
         layout, outer = NCHW, (s[0], s[1], s[2])
     elif len(s) == 4 and s[1] == 1:
         layout, outer = CHANNELS_LAST, (s[0], s[2], s[3])
     else:
-        raise ValueError(f"{name}: the bf16 kernel takes NCHW or channels-last"
+        raise ValueError(f"{name}: the kernels take NCHW or channels-last"
                          f" operands, got strides {s}")
-    if any(v % 8 for v in outer):
+    unit = 16 // _ITEMSIZE[dtype]
+    if any(v % unit for v in outer):
         raise ValueError(f"{name}: {LAYOUT_NAMES[layout]} strides {s} are "
-                         f"not multiples of 8 values (16 bytes), which TMA "
-                         f"needs")
+                         f"not multiples of {unit} values (16 bytes), which "
+                         f"TMA needs")
     return layout
 
 
@@ -78,6 +88,14 @@ def bf16_smem_bytes() -> int:
     return STAGES * stage + 3 * TILE_M * TILE_N * 2 + 2048
 
 
+def f32_smem_bytes() -> int:
+    """The float32 kernel's shared memory (csrc/pixel_shuffle.cu
+    PsF32Smem): the ring alone (A and B's two TF32 halves a stage; c1 and
+    x1 are read from L2), 2 KB of barriers and alignment."""
+    stage = TILE_M * F32_DEPTH * 4 + 2 * TILE_N * F32_DEPTH * 4
+    return F32_STAGES * stage + 2048
+
+
 @functools.lru_cache(maxsize=None)
 def pixel_shuffle_plan(B: int, H: int, W: int, C: int, O: int,
                        c1_strides: Sequence[int], x1_strides: Sequence[int],
@@ -86,28 +104,28 @@ def pixel_shuffle_plan(B: int, H: int, W: int, C: int, O: int,
     """The kernel's plan for c2 (B, C, H, W), O output channels and the
     element strides of c1 and x1 (B, O, 2H, 2W).
 
-    bfloat16: tiles of 128 pixels of one c2 row x 128 product columns, a
-    row's last tile ragged (TMA clips it), B * H * ceil(W / 128) * (4 O /
-    128) of them, walked by min(tiles, sms) persistent blocks; c1 and x1
+    Both dtypes: tiles of 128 pixels of one c2 row x 128 product columns,
+    a row's last tile ragged (TMA clips it), B * H * ceil(W / 128) * (4 O
+    / 128) of them, walked by min(tiles, sms) persistent blocks; c1 and x1
     each NCHW or channels-last (`operand_layout`), one instantiation per
-    pair. float32: one block per 64 x 128 tile, any strides."""
+    pair. bfloat16 walks the tiles column tiles fastest; float32 in groups
+    of F32_GROUP row tiles, rows fastest within a group, and takes the
+    weight's TF32 halves in a (2, 4O, C) float32 scratch."""
     if C <= 0 or C % 8 or O <= 0 or O % 32:
         raise ValueError(f"the kernel takes C % 8 == 0 and O % 32 == 0, got "
                          f"C={C}, O={O}")
     if min(B, H, W) < 0 or sms <= 0:
         raise ValueError(f"bad geometry B={B}, H={H}, W={W}, sms={sms}")
-    n_cols = 4 * O // TILE_N
-    if dtype == torch.float32:
-        tiles = -(-B * H * W // F32_TILE_M) * (4 * O // F32_TILE_N)
-        return PixelShufflePlan(F32_TILE_M, F32_TILE_N, tiles, tiles, -1, -1,
-                                F32_TILE_M * (F32_TILE_N + 1) * 4)
-    if dtype != torch.bfloat16:
+    if dtype not in _ITEMSIZE:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {dtype}")
-    c1_layout = operand_layout("c1", c1_strides)
-    x1_layout = operand_layout("x1", x1_strides)
-    tiles = B * H * -(-W // TILE_M) * n_cols
+    c1_layout = operand_layout("c1", c1_strides, dtype)
+    x1_layout = operand_layout("x1", x1_strides, dtype)
+    tiles = B * H * -(-W // TILE_M) * (4 * O // TILE_N)
+    f32 = dtype == torch.float32
     return PixelShufflePlan(TILE_M, TILE_N, tiles, min(tiles, sms),
-                            c1_layout, x1_layout, bf16_smem_bytes())
+                            c1_layout, x1_layout,
+                            f32_smem_bytes() if f32 else bf16_smem_bytes(),
+                            (2, 4 * O, C) if f32 else ())
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,9 +168,8 @@ def pixel_shuffle_up_bn_cuda(c2, weight, c1, x1, scale, shift
                              ) -> torch.Tensor:
     """c2 must hold its pixels as rows of C contiguous values (a
     channels-last map, or a view of a token stream), its batch stride a
-    multiple of 8; c1 and x1: bf16, NCHW or channels-last (see
-    `operand_layout`), 16-byte aligned; float32, any strides. C % 8 == 0,
-    O % 32 == 0."""
+    multiple of 8; c1 and x1 NCHW or channels-last (see
+    `operand_layout`), 16-byte aligned. C % 8 == 0, O % 32 == 0."""
     B, C, H, W = c2.shape
     O = weight.shape[1]
     dt = c2.dtype
@@ -173,20 +190,23 @@ def pixel_shuffle_up_bn_cuda(c2, weight, c1, x1, scale, shift
         if tuple(t.shape) != (B, O, 2 * H, 2 * W):
             raise ValueError(f"{name}: expected shape {(B, O, 2 * H, 2 * W)},"
                              f" got {tuple(t.shape)}")
-        if dt == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     c1_s, x1_s = _strides(c1), _strides(x1)
     plan = pixel_shuffle_plan(B, H, W, C, O, c1_s, x1_s, dt,
                               _device_sms(c2.device.index or 0))
     out = torch.empty((B, O, 2 * H, 2 * W), dtype=dt, device=c2.device)
+    w_split = (torch.empty(plan.scratch, dtype=dt, device=c2.device)
+               if plan.scratch else None)
     lib = kernels.library()
     with torch.cuda.device(c2.device):
         status = lib.msa_pixel_shuffle_up_bn(
             c2.data_ptr(), c2_bs, weight.data_ptr(), c1.data_ptr(),
             *c1_s, x1.data_ptr(), *x1_s, scale.data_ptr(),
-            shift.data_ptr(), out.data_ptr(), B, H, W, C, O, plan.tile_m,
-            plan.tile_n, plan.grid, plan.c1_layout, plan.x1_layout,
-            plan.smem_bytes, kernels.dtype_code(c2),
+            shift.data_ptr(), out.data_ptr(),
+            None if w_split is None else w_split.data_ptr(), B, H, W, C, O,
+            plan.tile_m, plan.tile_n, plan.grid, plan.c1_layout,
+            plan.x1_layout, plan.smem_bytes, kernels.dtype_code(c2),
             kernels.current_stream(c2))
     kernels.check_status("pixel_shuffle_up_bn", status)
     kernels.count_launch("pixel_shuffle_up_bn")

@@ -53,8 +53,8 @@ def work(name: str, args: tuple, out: torch.Tensor) -> Dict[str, float]:
     """What the function must do on `args`, whatever a kernel does again:
     bytes (each tensor input read once, the output written once) and
     operations, split into those of the tensor cores (matrix products: in
-    float32, K1, K2 and K5 take each as three TF32 products there, K6 on
-    the CUDA cores) and the rest."""
+    float32, K1, K2, K5 and K6 take each as three TF32 products there) and
+    the rest."""
     if name == "convnext_block":  # out has x's shape (not a guarded buffer's)
         out = args[0]
     nbytes = sum(a.numel() * a.element_size() for a in args

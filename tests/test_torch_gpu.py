@@ -87,18 +87,25 @@ def test_convnext_and_pixel_shuffle_at_ragged_shapes(name, label, kw,
 
 
 def test_pixel_shuffle_refuses_operands_tma_cannot_take():
-    """bf16 K6 takes c1 and x1 NCHW or channels-last with 16-byte strides
-    and raises, launching nothing, on anything else."""
+    """K6 takes c1 and x1 NCHW or channels-last with 16-byte strides, in
+    bf16 and in float32, and raises, launching nothing, on anything
+    else."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
-    fn, (c2, w, c1, x1, sc, sh) = pixel_shuffle_case(8, 32, torch.bfloat16, g)
     before = kernels.LAUNCHES["pixel_shuffle_up_bn"]
-    hw_swapped = c1.transpose(2, 3).contiguous().transpose(2, 3)
-    with pytest.raises(ValueError, match="NCHW or channels-last"):
-        fn(c2, w, hw_swapped, x1, sc, sh)
-    shifted = torch.empty(c1.numel() + 1, dtype=c1.dtype, device=dev)[1:]
-    with pytest.raises(ValueError, match="aligned"):
-        fn(c2, w, c1, shifted.view(c1.shape), sc, sh)
+    for dt in (torch.bfloat16, torch.float32):
+        fn, (c2, w, c1, x1, sc, sh) = pixel_shuffle_case(8, 32, dt, g)
+        hw_swapped = c1.transpose(2, 3).contiguous().transpose(2, 3)
+        with pytest.raises(ValueError, match="NCHW or channels-last"):
+            fn(c2, w, hw_swapped, x1, sc, sh)
+        shifted = torch.empty(c1.numel() + 1, dtype=c1.dtype, device=dev)[1:]
+        with pytest.raises(ValueError, match="aligned"):
+            fn(c2, w, c1, shifted.view(c1.shape), sc, sh)
+    # float32 rows of 18 values: 72 bytes, no multiple of 16
+    B, O, OH, OW = c1.shape
+    wide = torch.zeros((B, O, OH, OW + 2), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fn(c2, w, c1, wide[..., :OW], sc, sh)
     assert kernels.LAUNCHES["pixel_shuffle_up_bn"] == before
 
 

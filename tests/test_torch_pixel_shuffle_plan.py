@@ -6,8 +6,9 @@ shape the port runs K6 at.
   kernel's tile walk emulated here) cover every (pixel, column) of the
   product exactly once, each within one c2 row, so that each tile's output
   is one box of 2 output rows; the persistent grid visits every tile once.
+  (The float32 kernel's grouped walk: tests/test_torch_tf32_pixel_shuffle.py.)
 - The instantiation chosen for each c1 / x1 layout pair, and the
-  `ValueError` for an operand TMA cannot take.
+  `ValueError` for an operand TMA cannot take, in both dtypes.
 - Every plan's shared memory fits a block (227 KB), and the plan's
   constants are the kernel source's.
 """
@@ -125,26 +126,51 @@ def test_layouts_of_the_kernel_cases():
         kw = dict(kw)
         kw.pop("grid", None)
         kw.pop("E", None)
-        _, (c2, w, c1, x1, _, _) = kc.pixel_shuffle_case(4, 32, BF16, g, **kw)
-        B, C, H, W = c2.shape
-        plan = ps.pixel_shuffle_plan(B, H, W, C, w.shape[1],
-                                     ps._strides(c1), ps._strides(x1), BF16)
-        assert (plan.c1_layout, plan.x1_layout) == want[label], label
+        for dtype in (BF16, torch.float32):
+            _, (c2, w, c1, x1, _, _) = kc.pixel_shuffle_case(4, 32, dtype, g,
+                                                             **kw)
+            B, C, H, W = c2.shape
+            plan = ps.pixel_shuffle_plan(B, H, W, C, w.shape[1],
+                                         ps._strides(c1), ps._strides(x1),
+                                         dtype)
+            assert (plan.c1_layout, plan.x1_layout) == want[label], label
     assert set(want.values()) == {(a, b) for a in (0, 1) for b in (0, 1)}
 
 
-@pytest.mark.parametrize("strides,match", [
-    ((1024 * 256 * 6, 256 * 6, 6, 1), "multiples of 8"),   # OW = 6
-    ((256 * 6 * 1024, 1, 6 * 1024, 1028), "multiples of 8"),
-    ((1024 * 256 * 256, 256 * 256, 1, 256), "NCHW or channels-last"),
-    ((2 * 1024 * 256 * 256, 2 * 256 * 256, 2 * 256, 2), "NCHW or channels"),
+@pytest.mark.parametrize("dtype,strides,match", [
+    (BF16, (1024 * 256 * 6, 256 * 6, 6, 1), "multiples of 8"),   # OW = 6
+    (BF16, (256 * 6 * 1024, 1, 6 * 1024, 1028), "multiples of 8"),
+    (BF16, (1024 * 256 * 256, 256 * 256, 1, 256), "NCHW or channels-last"),
+    (BF16, (2 * 1024 * 256 * 256, 2 * 256 * 256, 2 * 256, 2),
+     "NCHW or channels"),
+    # float32: 16 bytes are 4 values (OW = 2 and 1026 are not multiples)
+    (torch.float32, (1024 * 256 * 2, 256 * 2, 2, 1), "multiples of 4"),
+    (torch.float32, (256 * 6 * 1024, 1, 6 * 1024, 1026), "multiples of 4"),
+    (torch.float32, (1024 * 256 * 256, 256 * 256, 1, 256),
+     "NCHW or channels-last"),
+    (torch.float32, (2 * 1024 * 256 * 256, 2 * 256 * 256, 2 * 256, 2),
+     "NCHW or channels"),
 ])
-def test_plan_refuses_operands_tma_cannot_take(strides, match):
+def test_plan_refuses_operands_tma_cannot_take(dtype, strides, match):
     ok = _nchw(1, 1024, 256, 256)
     with pytest.raises(ValueError, match=match):
-        ps.pixel_shuffle_plan(1, 128, 128, 1024, 1024, strides, ok, BF16)
+        ps.pixel_shuffle_plan(1, 128, 128, 1024, 1024, strides, ok, dtype)
     with pytest.raises(ValueError, match="x1"):
-        ps.pixel_shuffle_plan(1, 128, 128, 1024, 1024, ok, strides, BF16)
+        ps.pixel_shuffle_plan(1, 128, 128, 1024, 1024, ok, strides, dtype)
+
+
+def test_float32_takes_the_strides_bf16_refuses():
+    """TMA's 16 bytes are 4 float32 values: OW = 4 and a channels-last
+    pixel stride of 1028 are float32 operands the kernel takes."""
+    for strides in ((1024 * 256 * 4, 256 * 4, 4, 1),
+                    (256 * 6 * 1024, 1, 6 * 1024, 1028)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ps.operand_layout("c1", strides, BF16)
+        ok = _nchw(1, 1024, 256, 256)
+        plan = ps.pixel_shuffle_plan(1, 128, 128, 1024, 1024, strides, ok,
+                                     torch.float32)
+        assert plan.c1_layout == ps.operand_layout("c1", strides,
+                                                   torch.float32)
 
 
 @pytest.mark.parametrize("C,O", [(12, 32), (32, 48), (0, 32)])
@@ -167,19 +193,31 @@ def test_plan_refuses_other_dtypes():
 def test_every_plan_fits_shared_memory(B, H, W, E, dtype):
     plan = _plan(B, H, W, E, dtype=dtype)
     assert 0 < plan.smem_bytes <= ps.SMEM_LIMIT == 227 * 1024
-    if dtype == torch.float32:   # any strides; one block a 64 x 128 tile
-        assert (plan.c1_layout, plan.x1_layout) == (-1, -1)
-        assert plan.grid == plan.tiles == -(-B * H * W // 64) * (4 * E // 128)
+    # both dtypes: the same tiles, persistent blocks, the layouts' pair
+    assert (plan.tile_m, plan.tile_n) == (ps.TILE_M, ps.TILE_N)
+    assert plan.tiles == B * H * -(-W // ps.TILE_M) * (4 * E // ps.TILE_N)
+    assert plan.grid == min(plan.tiles, ps.SMS)
+    assert (plan.c1_layout, plan.x1_layout) == (ps.NCHW, ps.CHANNELS_LAST)
+    if dtype == torch.float32:   # the ring alone; w_split's halves
+        assert plan.smem_bytes == ps.f32_smem_bytes() == 198656
+        assert plan.scratch == (2, 4 * E, E)
+    else:
+        assert plan.smem_bytes == ps.bf16_smem_bytes()
+        assert plan.scratch == ()
 
 
 def test_plan_constants_match_the_kernel_source():
     for name, value in (("kPsTileM", ps.TILE_M), ("kPsTileN", ps.TILE_N),
                         ("kPsDepth", ps.DEPTH), ("kPsStages", ps.STAGES),
-                        ("kPsBM", ps.F32_TILE_M), ("kPsBN", ps.F32_TILE_N)):
+                        ("kPsF32Depth", ps.F32_DEPTH),
+                        ("kPsF32Stages", ps.F32_STAGES),
+                        ("kPsF32Group", ps.F32_GROUP)):
         got = re.search(rf"constexpr int {name} = (\d+);", CSRC)
         assert got is not None and int(got.group(1)) == value, name
-    assert "kBytes = kBars + 1024 + 1024" in CSRC
+    # both layouts end in 1 KB of barriers and 1 KB of alignment slack
+    assert CSRC.count("kBytes = kBars + 1024 + 1024") == 2
     assert ps.bf16_smem_bytes() == 231424
+    assert ps.f32_smem_bytes() == 198656
 
 
 def test_batch_stride_of_a_single_image():

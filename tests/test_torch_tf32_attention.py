@@ -39,12 +39,11 @@ from multimodal_sam_adapter_torch.ops.flash_attention import (
     flash_attention_plain)
 from multimodal_sam_adapter_torch.ops.window_attention import (
     window_attention_plain)
-from tests.test_torch_tf32_split import split, tf32_rna
+from tests._torch_tf32 import TOL, product, within
 
 CSRC = (Path(__file__).resolve().parents[1] / "multimodal_sam_adapter_torch"
         / "csrc" / "rel_pos_attention_f32.cuh").read_text()
 LOG2E = 1.4426950408889634
-TOL = dict(atol=1e-4, rtol=1e-4)   # kernel_checks.TOLERANCES[float32]
 SEED = 19
 # (name, kind, grid, table rows or None, heads, head dim, windows | batch)
 CASES = [
@@ -70,35 +69,6 @@ def inputs(case):
     rpw = (rng.standard_normal((rows or 2 * W - 1, d)) * 0.5).astype(
         np.float32)
     return qkv, rph, rpw
-
-
-def add_truncated(acc: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
-    """acc + part (part exact, float64) rounded toward zero to float32."""
-    exact = acc.double() + part
-    r = exact.float()
-    over = r.double().abs() > exact.abs()
-    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
-
-
-def product(a, b, passes=3, truncate=False):
-    """a (..., M, K) times b (..., N, K)^T as the kernel's .tf32 wgmma
-    products run it: 3xTF32 (or one pass of the big halves), each k8 step's
-    three products added into one accumulator, in float32 or (truncate)
-    exactly and then truncated to float32, as the tensor cores add."""
-    if passes == 1:
-        return tf32_rna(a) @ tf32_rna(b).transpose(-1, -2)
-    ab, as_ = split(a)
-    bb, bs = split(b)
-    if not truncate:
-        t = lambda x: x.transpose(-1, -2)  # noqa: E731
-        return (ab @ t(bs) + as_ @ t(bb)) + ab @ t(bb)
-    acc = torch.zeros(a.shape[:-1] + b.shape[-2:-1])
-    for k0 in range(0, a.shape[-1], 8):
-        for x, y in ((ab, bs), (as_, bb), (ab, bb)):
-            part = x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8].double(
-            ).transpose(-1, -2)
-            acc = add_truncated(acc, part)
-    return acc
 
 
 def octet_order(keys: int) -> torch.Tensor:
@@ -167,13 +137,6 @@ def model(case, qkv, rph, rpw, **kw):
     _, _, hw, _, heads, d, _ = case
     return kernel_model(*map(torch.from_numpy, (qkv, rph, rpw)), hw, heads,
                         d ** -0.5, **kw)
-
-
-def within(got, want, share=1.0):
-    """Every element within `share` of the float32 tolerance."""
-    bound = TOL["atol"] + TOL["rtol"] * want.abs()
-    return bool(((got.double() - want.double()).abs() <= share * bound)
-                .all())
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])

@@ -21,29 +21,18 @@ by w2 (C, 4C) ~ 1/sqrt(4C)), C in {16, 32, 96}, 300 pixels:
   tolerance (kernel_checks.TOLERANCES: 1e-4 + 1e-4 |want|) on the same
   data: the mutant that shows why three passes are needed.
 
-The model lives here only; the package's CPU path is the plain float32
-version.
+The model lives in tests/_torch_tf32.py only; the package's CPU path is
+the plain float32 version.
 """
 import numpy as np
 import pytest
 import torch
 
+from tests._torch_tf32 import split, tf32_rna
+
 WIDTHS = (16, 32, 96)
 PIXELS = 300
 SEED = 18
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on the int32 bit pattern: half of the 13 dropped
-    mantissa bits' weight added to the magnitude (sign and magnitude: the
-    pattern's low bits are the magnitude's), then the 13 bits cleared."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    big = tf32_rna(x)
-    return big, tf32_rna(x - big)
 
 
 def operands(C: int, product: str):
