@@ -1,0 +1,2 @@
+"""launches.train: device kernels a step."""
+from port_bench.yardstick import launches_per_step as read  # noqa: F401
