@@ -12,6 +12,10 @@ multimodal_sam_adapter_tpu/engine/inference.py, mode for mode:
 
 Images are tensors (B, H, W, C_in), already normalized; the engine moves
 them to the model's device and dtype. The serve path reads no image files.
+
+A call of `predict` or `aug_test` is the span `msa.predict` in a
+torch.profiler trace, with its phases `msa.predict.stage`, `.h2d`,
+`.forward`, `.post` and `.d2h` inside it (utils/profiling.py:annotate).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..utils.interpolate import resize_bilinear
+from ..utils.profiling import annotate
 
 MODES = ("whole", "whole_dim", "whole_dim_cut", "slide", "slide_mod_sel")
 
@@ -55,7 +60,10 @@ class InferenceEngine:
     @torch.inference_mode()
     def logits(self, img: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C_in) -> (B, H, W, num_classes)."""
-        return self.model(img.to(device=self.device, dtype=self.dtype))
+        with annotate("msa.predict.h2d"):
+            img = img.to(device=self.device, dtype=self.dtype)
+        with annotate("msa.predict.forward"):
+            return self.model(img)
 
     @staticmethod
     def _crop_valid(out: torch.Tensor, valid_hw) -> torch.Tensor:
@@ -67,24 +75,30 @@ class InferenceEngine:
 
     # -- modes -------------------------------------------------------------
     def whole(self, img, ori_shape=None, rescale=True, valid_hw=None):
-        out = self._crop_valid(self.logits(img), valid_hw)
-        if (rescale and ori_shape is not None
-                and tuple(ori_shape) != tuple(out.shape[1:3])):
-            out = _resize_nhwc(out, ori_shape)
-        return out
+        out = self.logits(img)
+        with annotate("msa.predict.post"):
+            out = self._crop_valid(out, valid_hw)
+            if (rescale and ori_shape is not None
+                    and tuple(ori_shape) != tuple(out.shape[1:3])):
+                out = _resize_nhwc(out, ori_shape)
+            return out
 
     def whole_dim(self, img, dim, rescale=True, valid_hw=None):
-        out = self._crop_valid(self.logits(img), valid_hw)
-        if rescale:
-            out = _resize_nhwc(out, dim)
-        return out
+        out = self.logits(img)
+        with annotate("msa.predict.post"):
+            out = self._crop_valid(out, valid_hw)
+            if rescale:
+                out = _resize_nhwc(out, dim)
+            return out
 
     def whole_dim_cut(self, img, dim, cut_dim, rescale=False, valid_hw=None):
-        out = self._crop_valid(self.logits(img), valid_hw)
-        if rescale:
-            out = _resize_nhwc(out, dim)
-        # cut_dim is (w, h): keep [:h, :w]
-        return out[:, :cut_dim[1], :cut_dim[0]]
+        out = self.logits(img)
+        with annotate("msa.predict.post"):
+            out = self._crop_valid(out, valid_hw)
+            if rescale:
+                out = _resize_nhwc(out, dim)
+            # cut_dim is (w, h): keep [:h, :w]
+            return out[:, :cut_dim[1], :cut_dim[0]]
 
     @torch.inference_mode()
     def slide(self, img: torch.Tensor, crop_size, stride) -> torch.Tensor:
@@ -96,16 +110,19 @@ class InferenceEngine:
             raise ValueError(f"slide inference takes one image, got {B}")
         ch, cw = crop_size
         boxes = slide_windows((H, W), crop_size, stride)
-        crops = torch.stack([img[0, y1:y1 + ch, x1:x1 + cw]
-                             for y1, x1 in boxes])
-        logits = self.logits(crops).float()
-        h, w = logits.shape[1:3]
-        preds = logits.new_zeros((H, W, logits.shape[-1]))
-        count = logits.new_zeros((H, W, 1))
-        for (y1, x1), lg in zip(boxes, logits):
-            preds[y1:y1 + h, x1:x1 + w] += lg
-            count[y1:y1 + h, x1:x1 + w] += 1.0
-        return (preds / count)[None]
+        with annotate("msa.predict.stage"):
+            crops = torch.stack([img[0, y1:y1 + ch, x1:x1 + cw]
+                                 for y1, x1 in boxes])
+        logits = self.logits(crops)
+        with annotate("msa.predict.post"):
+            logits = logits.float()
+            h, w = logits.shape[1:3]
+            preds = logits.new_zeros((H, W, logits.shape[-1]))
+            count = logits.new_zeros((H, W, 1))
+            for (y1, x1), lg in zip(boxes, logits):
+                preds[y1:y1 + h, x1:x1 + w] += lg
+                count[y1:y1 + h, x1:x1 + w] += 1.0
+            return (preds / count)[None]
 
     # -- public API ---------------------------------------------------------
     @torch.inference_mode()
@@ -132,27 +149,37 @@ class InferenceEngine:
             # it is slide
             out = self.slide(img, tuple(cfg["crop_size"]),
                              tuple(cfg["stride"]))
-            out = self._crop_valid(out, valid_hw)
-            if (ori_shape is not None
-                    and tuple(ori_shape) != tuple(out.shape[1:3])):
-                out = _resize_nhwc(out, ori_shape)
-        probs = out.float().softmax(dim=-1)
-        if flip:
-            probs = probs.flip(2 if flip_direction == "horizontal" else 1)
-        return probs
+            with annotate("msa.predict.post"):
+                out = self._crop_valid(out, valid_hw)
+                if (ori_shape is not None
+                        and tuple(ori_shape) != tuple(out.shape[1:3])):
+                    out = _resize_nhwc(out, ori_shape)
+        with annotate("msa.predict.post"):
+            probs = out.float().softmax(dim=-1)
+            if flip:
+                probs = probs.flip(2 if flip_direction == "horizontal" else 1)
+            return probs
 
     def predict(self, img: torch.Tensor, ori_shape=None,
                 valid_hw=None) -> torch.Tensor:
         """argmax class map (B, H', W'), int64, on the host."""
-        probs = self.inference(img, ori_shape, valid_hw=valid_hw)
-        return probs.argmax(dim=-1).cpu()
+        with annotate("msa.predict"):
+            probs = self.inference(img, ori_shape, valid_hw=valid_hw)
+            with annotate("msa.predict.post"):
+                labels = probs.argmax(dim=-1)
+            with annotate("msa.predict.d2h"):
+                return labels.cpu()
 
     def aug_test(self, imgs: List[torch.Tensor], flips: List[bool],
                  ori_shape) -> torch.Tensor:
         """Multi-scale + flip TTA: the softmax averaged over the
         augmentations, then argmax (B, H', W'), int64, on the host."""
-        acc = None
-        for img, flip in zip(imgs, flips):
-            p = self.inference(img, ori_shape, flip=flip)
-            acc = p if acc is None else acc + p
-        return (acc / len(imgs)).argmax(dim=-1).cpu()
+        with annotate("msa.predict"):
+            acc = None
+            for img, flip in zip(imgs, flips):
+                p = self.inference(img, ori_shape, flip=flip)
+                acc = p if acc is None else acc + p
+            with annotate("msa.predict.post"):
+                labels = (acc / len(imgs)).argmax(dim=-1)
+            with annotate("msa.predict.d2h"):
+                return labels.cpu()

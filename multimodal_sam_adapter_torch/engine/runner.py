@@ -6,8 +6,9 @@ EpochBasedRunner and hooks).
 The hot path is the train step (engine/train.py) on each batch, which the
 runner moves to the model's device (pinned host memory, non_blocking);
 the loss is read back (`.item()`, a device sync) only at log intervals.
-Named spans `data`, `train_step`, `checkpoint` and `eval` mark the phases
-in a torch.profiler trace (utils/profiling.py).
+Named spans `msa.data`, `msa.checkpoint` and `msa.eval` mark the phases
+in a torch.profiler trace (utils/profiling.py:annotate), beside the
+step's own `msa.train_step` (engine/train.py).
 
 On data-parallel ranks (parallel/ddp.py) every rank runs the loop on its
 shard of the loader; rank 0 alone writes checkpoints, `best.pth` and the
@@ -218,7 +219,7 @@ class EpochRunner:
         path (on every rank)."""
         meta = dict(self.ckpt_meta, epoch=epoch, iter=self.state.step,
                     best_metric=float(self.best_metric))
-        with annotate("checkpoint"):
+        with annotate("msa.checkpoint"):
             average_partial_grads(self.state.optimizer)
             path = osp.join(self.ckpt_dir,
                             f"{tag or f'step_{self.state.step}'}.pth")
@@ -235,13 +236,12 @@ class EpochRunner:
             self.train_loader.set_epoch(epoch)
             batches = iter(self.train_loader)
             while True:
-                with annotate("data"):
+                with annotate("msa.data"):
                     batch = next(batches, None)
                     if batch is None:
                         break
                     batch = to_device(batch, self.device)
-                with annotate("train_step"):
-                    out = self.train_step(self.state, batch)
+                out = self.train_step(self.state, batch)
                 self.logger.log_step(self.state.step, epoch,
                                      {"loss": out["loss"]})
                 if self.stop_training:
@@ -249,7 +249,7 @@ class EpochRunner:
             if (epoch + 1) % self.ckpt_interval == 0:
                 self._save(epoch)
             if self.eval_fn and (epoch + 1) % self.eval_interval == 0:
-                with annotate("eval"):
+                with annotate("msa.eval"):
                     summary = self.eval_fn(self.state)
                 self.logger.log_eval(epoch, summary)
                 val = summary.get(self.save_best or "mIoU", -np.inf)

@@ -9,7 +9,10 @@ backward, and the optimizer's `step`, which updates the parameters every
 bfloat16 the forward and the backward run under torch.autocast over the
 float32 parameters, as the JAX package runs bf16 compute over float32
 params. The step takes batches on the model's device; the epoch loop,
-the loader and checkpoints are engine/runner.py's.
+the loader and checkpoints are engine/runner.py's. A call is the span
+`msa.train_step` in a torch.profiler trace, with `.forward`, `.backward`
+(the checkpoint recompute and, under DDP, an accumulation's all-reduce)
+and `.update` inside it (utils/profiling.py:annotate).
 
 Under data parallelism the step takes the DistributedDataParallel that
 wraps the segmentor (parallel/ddp.py:wrap_model) and this rank's share of
@@ -40,6 +43,7 @@ from ..models.segmentor import EncoderDecoder, build_segmentor
 from ..nn.layers import fold_in, set_dropout_key
 from ..parallel.ddp import rank_world
 from ..parallel.tp import Mesh, shard_segmentor_
+from ..utils.profiling import annotate
 from .optim import LayerDecayAdamW, make_optimizer
 
 
@@ -87,23 +91,27 @@ def make_train_step(model: nn.Module, optimizer: LayerDecayAdamW,
                          "build it after shard_segmentor_)")
 
     def train_step(state: TrainState, batch) -> Dict[str, object]:
-        segmentor.train()
-        img = batch["img"].to(device, non_blocking=True)
-        gt = batch["gt"].to(device, non_blocking=True)
-        set_dropout_key(segmentor, fold_in(state.seed, state.step), shard)
-        last = optimizer.mini_step + 1 >= optimizer.grad_accum_steps
-        with (model.no_sync() if ddp and not last
-              else contextlib.nullcontext()):
-            with torch.autocast(device.type, dtype=compute_dtype,
-                                enabled=compute_dtype is not None):
-                loss, _ = model(img, gt, ignore_index=ignore_index,
-                                ohem_thresh=ohem_thresh,
-                                ohem_min_kept=ohem_min_kept,
-                                ohem_per_sample=ohem_per_sample)
-            loss.backward()
-        updated = optimizer.step()
-        state.step += 1
-        return {"loss": loss.detach(), "updated": updated}
+        with annotate("msa.train_step"):
+            segmentor.train()
+            img = batch["img"].to(device, non_blocking=True)
+            gt = batch["gt"].to(device, non_blocking=True)
+            set_dropout_key(segmentor, fold_in(state.seed, state.step), shard)
+            last = optimizer.mini_step + 1 >= optimizer.grad_accum_steps
+            with (model.no_sync() if ddp and not last
+                  else contextlib.nullcontext()):
+                with annotate("msa.train_step.forward"), torch.autocast(
+                        device.type, dtype=compute_dtype,
+                        enabled=compute_dtype is not None):
+                    loss, _ = model(img, gt, ignore_index=ignore_index,
+                                    ohem_thresh=ohem_thresh,
+                                    ohem_min_kept=ohem_min_kept,
+                                    ohem_per_sample=ohem_per_sample)
+                with annotate("msa.train_step.backward"):
+                    loss.backward()
+            with annotate("msa.train_step.update"):
+                updated = optimizer.step()
+            state.step += 1
+            return {"loss": loss.detach(), "updated": updated}
 
     return train_step
 

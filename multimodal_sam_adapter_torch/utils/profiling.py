@@ -19,11 +19,22 @@ figures that stand for the forward as served are therefore:
 `profiled_ms` and `profiled_idle_share` come from the trace window alone;
 `profiled_ms - unprofiled_ms` is the profiler's own cost.
 
-Beside them, the counterparts of the JAX package's utils/profiling.py,
-used by the training runner: `trace(log_dir)` (a torch.profiler trace of
-the block, written as a Chrome trace), `annotate(name)` (a named span in
-such a trace, `torch.profiler.record_function`) and `StepTimer` (an EMA of
-the wall time between ticks).
+Beside them, `annotate(name)`: the port's one span API. Under a running
+`torch.profiler` it opens a `torch.profiler.record_function`, so the span
+lands in the same trace, on the same clock, as the kernels and copies it
+launched; with no profiler running it returns one shared no-op context
+and constructs nothing. The program's spans are named `msa.<phase>`:
+
+- `msa.predict` (a call of `InferenceEngine.predict` or `aug_test`) and
+  its phases `.stage` (slide's host crop stack), `.h2d` (the input to the
+  model's device and dtype), `.forward`, `.post` (valid-band crop,
+  resizes, slide's scatter-add, softmax, flip, argmax) and `.d2h`;
+- `msa.train_step` (a micro-step of `make_train_step`) and its
+  `.forward` (autocast and the loss), `.backward` and `.update`
+  (`optimizer.step()`, which updates on every `grad_accum_steps`-th);
+- `msa.data`, `msa.checkpoint` and `msa.eval`, the epoch runner's phases.
+
+A `torch.profiler.profile` around any call shows them.
 
 Run on the card, from the root of a checkout:
 
@@ -44,7 +55,7 @@ import json
 import re
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
 
@@ -68,40 +79,15 @@ FAMILIES: Tuple[Tuple[str, str], ...] = (
 )
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the block with torch.profiler (CPU, and CUDA when there is a
-    card) and write `trace.json` (Chrome trace format) into `log_dir`."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+_OFF = contextlib.nullcontext()
 
 
 def annotate(name: str):
-    """A named span around host code, seen in a `trace`."""
+    """A named span around host code in a running `torch.profiler` trace;
+    with no profiler running, a shared no-op context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """EMA of the wall time between calls of `tick()`, once per step."""
-
-    def __init__(self, alpha: float = 0.05):
-        self.alpha = alpha
-        self.ema: Optional[float] = None
-        self._last: Optional[float] = None
-
-    def tick(self) -> Optional[float]:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self.ema = dt if self.ema is None else (
-                self.alpha * dt + (1 - self.alpha) * self.ema)
-        self._last = now
-        return self.ema
 
 
 def family(name: str) -> str:

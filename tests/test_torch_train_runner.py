@@ -252,13 +252,28 @@ def test_early_stopping_and_logger(tmp_path):
     assert Lazy.reads == 3          # read only on the logged steps
 
 
-def test_step_timer_annotate_and_trace(tmp_path):
-    t = profiling.StepTimer(alpha=0.5)
-    assert t.tick() is None and t.tick() >= 0
-    with profiling.trace(str(tmp_path)):
-        with profiling.annotate("span_under_test"):
+def test_step_timer_annotate_and_trace(tmp_path, monkeypatch):
+    """`annotate` is gated on a running profiler: without one it hands out
+    one shared no-op context and constructs no `record_function`; under
+    one its span is in the exported trace."""
+    real = torch.profiler.record_function
+
+    def refuse(name, *args):
+        raise AssertionError(f"record_function({name!r}) constructed")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    off = profiling.annotate("msa.span_under_test")
+    assert off is profiling.annotate("msa.another")
+    with off:
+        torch.ones(4).sum()
+    monkeypatch.setattr(torch.profiler, "record_function", real)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("msa.span_under_test") as span:
             torch.ones(4).sum()
-    assert "span_under_test" in (tmp_path / "trace.json").read_text()
+    assert isinstance(span, real)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert "msa.span_under_test" in (tmp_path / "trace.json").read_text()
 
 
 # ------------------------------------------------------- pretrained ingestion
